@@ -1,0 +1,512 @@
+"""Drive the PyTorch/CUDA port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (one line each, any failure exits non-zero):
+
+1. environment: the card (``nvidia-smi`` name and power limit), torch/CUDA;
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` for ``sm_90a``;
+3. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes and one small odd shape (exact equality: all integer or
+   bit arithmetic), with CUDA-event times and the card's least time for
+   the same work;
+4. the main path at the paper's geometry: raw iEEG -> LBP codes on the card
+   for 16 synthetic patients, per-patient calibration + one-shot training,
+   detection on the held-out seizures, then a 1024-session streaming fleet
+   (warm-up, steady, ragged and longer-than-bucket rounds);
+5. the main path against the plain path on the CPU: one patient's
+   training and inference, and the first 32 fleet sessions.
+
+The line before the last is a JSON object with every kernel's launches on
+the main path, times and bound; the last line is the device summary.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+PATIENTS = 16
+SESSIONS = 1024
+SEIZURES = 4            # record 0 trains, records 1..3 are held out
+CALIB_TARGET = 0.25     # max post-thinning frame density
+STEADY_ROUNDS = 6
+COMPARE_SESSIONS = 32
+SEED = 0
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
+# 32-bit rate outside the tensor cores, used for the integer/bit operations
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+KERNELS = {
+    "lbp": ("src/repro_torch/kernels/csrc/lbp.cu",
+            "src/repro/kernels/lbp/kernel.py:32"),
+    "hdc_encoder": ("src/repro_torch/kernels/csrc/hdc_encoder.cu",
+                    "src/repro/kernels/hdc_encoder/kernel.py:63"),
+    "hdc_am": ("src/repro_torch/kernels/csrc/hdc_am.cu",
+               "src/repro/kernels/hdc_am/kernel.py:42"),
+    "hdc_fleet": ("src/repro_torch/kernels/csrc/hdc_fleet.cu",
+                  "src/repro/kernels/hdc_fleet/kernel.py:134"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failed(RuntimeError):
+    pass
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise Failed(what)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2
+# ---------------------------------------------------------------------------
+
+def environment() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    log(card)
+    log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| python {sys.version.split()[0]} | devices {torch.cuda.device_count()}")
+    return card
+
+
+def build_kernels() -> None:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    path = build.build()
+    build.lib()
+    log(f"[build] nvcc sm_90a -> {path.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _rand_words(g, *shape) -> torch.Tensor:
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                         dtype=torch.int32).cuda()
+
+
+class KernelCheck:
+    """Collects equality, launches, times and bounds per kernel."""
+
+    def __init__(self):
+        self.rows: dict[str, dict] = {}
+
+    def compare(self, name: str, case: str, wrapper, kernel, plain, *,
+                n_bytes: float, n_ops: float, main: bool, reps: int = 10,
+                plain_reps: int = 3) -> None:
+        """Hold ``kernel()`` against ``plain()`` and time both; ``main``
+        marks the case at the main path's shape that the kernel's JSON row
+        reports.  ``launches`` counts this check's own launches."""
+        before = wrapper.launches
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+            if got.shape == want.shape and got.numel() else (0.0 if equal else float("inf"))
+        row = self.rows.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        k_ms = cuda_ms(kernel, reps)
+        p_ms = cuda_ms(plain, plain_reps, warmup=1)
+        if main:
+            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[kernel] {name:12s} {case:40s} equal={equal} "
+            f"launches={wrapper.launches - before} kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop)")
+        expect(equal, f"{name} {case}: kernel differs from its plain version")
+
+
+def check_kernels(shapes: dict) -> KernelCheck:
+    from repro_torch.kernels.hdc_am import ops as am_ops, ref as am_ref
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops, ref as enc_ref
+    from repro_torch.kernels.hdc_fleet import ops as fl_ops, ref as fl_ref
+    from repro_torch.kernels.lbp import ops as lbp_ops, ref as lbp_ref
+
+    g = torch.Generator().manual_seed(SEED)
+    kc = KernelCheck()
+
+    # lbp: (B, T, C) f32 -> (B, T - 6, C) uint8
+    for case, (b, t, c) in (("main", shapes["lbp"]), ("odd", (3, 101, 7))):
+        x = torch.randn(b, t, c, generator=g).cuda()
+        x[0, 5, 0] = float("nan")
+        t_out = t - 6
+        kc.compare("lbp", f"{case} x{(b, t, c)}", lbp_ops.lbp_codes,
+                   lambda: lbp_ops.lbp_codes(x), lambda: lbp_ref.lbp_ref(x),
+                   n_bytes=b * t * c * 4 + b * t_out * c,
+                   n_ops=b * t_out * c * 6 * 2, main=case == "main")
+
+    # hdc_encoder: positions (B, F, window, C, S) uint8 -> (B, F, W)
+    for case, (b, f, win, c, s, seg_len) in (("main", shapes["encoder"]),
+                                            ("odd", (1, 2, 48, 5, 7, 32))):
+        for thin in (False, True):
+            pos = torch.randint(0, seg_len, (b, f, win, c, s), generator=g,
+                                dtype=torch.uint8).cuda()
+            elec = torch.randint(0, seg_len, (c, s), generator=g,
+                                 dtype=torch.uint8).cuda()
+            kw = dict(window=win, segments=s, seg_len=seg_len,
+                      temporal_threshold=max(1, win // 5),
+                      spatial_thinning=thin, spatial_threshold=2)
+            d = s * seg_len
+            kc.compare("hdc_encoder", f"{case} pos{(b, f, win, c, s)} thin={thin}",
+                       enc_ops.encoder, lambda: enc_ops.encoder(pos, elec, **kw),
+                       lambda: enc_ref.encoder_ref(pos, elec, **kw),
+                       n_bytes=pos.numel() + elec.numel() + b * f * d // 8,
+                       n_ops=pos.numel() * 4 + b * f * d,
+                       main=case == "main" and not thin, reps=5, plain_reps=2)
+
+    # hdc_am: (B, W) x (C, W) -> (B, C)
+    for case, (b, c, w) in (("main", shapes["am"]), ("odd", (7, 5, 3))):
+        for mode in ("overlap", "hamming"):
+            q, cls = _rand_words(g, b, w), _rand_words(g, c, w)
+            kc.compare("hdc_am", f"{case} q{(b, w)} c{(c, w)} {mode}",
+                       am_ops.am_search, lambda: am_ops.am_search(q, cls, mode=mode, dim=w * 32),
+                       lambda: am_ref.am_search_ref(q, cls, mode=mode, dim=w * 32),
+                       n_bytes=(b + c) * w * 4 + b * c * 4, n_ops=b * c * w * 3,
+                       main=case == "main" and mode == "overlap", reps=20)
+
+    # hdc_fleet: tables (P, C, K, W), codes (S, T32, C) -> (S, K1, D)
+    for case, (p, s, t, c, k, w, window) in (("main", shapes["fleet"]),
+                                            ("odd", (3, 5, 96, 33, 8, 5, 32))):
+        tables = _rand_words(g, p, c, k, w)
+        owner = torch.randint(0, p, (s,), generator=g, dtype=torch.int32).cuda()
+        codes = torch.randint(0, k + 4, (s, t, c), generator=g, dtype=torch.uint8).cuda()
+        if case == "main":  # a steady round: every session streams t cycles
+            filled = torch.zeros(s, dtype=torch.int32).cuda()
+            lengths = torch.full((s,), t, dtype=torch.int32).cuda()
+        else:               # ragged: random fill levels, lengths from 0 to t
+            filled = torch.randint(0, window, (s,), generator=g, dtype=torch.int32).cuda()
+            lengths = torch.randint(0, t + 1, (s,), generator=g, dtype=torch.int32).cuda()
+            lengths[0] = 0
+        tm = fl_ref.emission_masks(filled, lengths, t_pad=t, window=window)
+        mask = (torch.rand(s, c, generator=g) > 0.25).to(torch.int32).cuda()
+        k1, d = tm.shape[1], w * 32
+        for mode, thr in (("or", 0), ("thin", 3), ("majority", 0)):
+            for cm in (None, mask):
+                kw = dict(mode=mode, dim=d, threshold=thr, chan_mask=cm)
+                n_bytes = (codes.numel() + tables.numel() * 4 + tm.numel() * 4
+                           + s * 4 + s * k1 * d * 4 + (0 if cm is None else s * c * 4))
+                per_word = 1 if mode == "or" else 64
+                n_ops = s * t * c * w * per_word + s * k1 * t * w * 3
+                kc.compare("hdc_fleet",
+                           f"{case} S={s} T={t} {mode} masked={cm is not None}",
+                           fl_ops.fleet_counts_kernel,
+                           lambda: fl_ops.fleet_counts_kernel(tables, owner, codes, tm, **kw),
+                           lambda: fl_ref.fleet_counts_plain(tables, owner, codes, tm, **kw),
+                           n_bytes=n_bytes, n_ops=n_ops,
+                           main=case == "main" and mode == "or" and cm is None,
+                           reps=10, plain_reps=2)
+    return kc
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def make_patients():
+    """Synthetic patients (the port's numpy data copy) with each record's raw
+    (channels, T) signal kept through the identity ``signal_transform``."""
+    from repro_torch.data import ieeg
+
+    out = []
+    for pid in range(PATIENTS):
+        signals: list[np.ndarray] = []
+
+        def keep(x, rng, signals=signals):
+            signals.append(x)
+            return x
+
+        patient = ieeg.make_patient(pid, n_seizures=SEIZURES, signal_transform=keep)
+        out.append((patient, signals))
+    return out
+
+
+def run_main_path(patients) -> dict:
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+    from repro_torch.data import ieeg
+    from repro_torch.kernels.lbp.ops import lbp_codes
+    from repro_torch.serve.fleet import StreamingFleet
+
+    cfg = HDCConfig()
+    res = {"cfg": cfg, "bank": {}, "codes": [], "preds": {}, "scores": {}}
+
+    # raw signal -> LBP codes on the card, held against the numpy coder
+    t0 = time.perf_counter()
+    for patient, signals in patients:
+        x = torch.from_numpy(np.stack(signals)).cuda().transpose(1, 2).contiguous()
+        codes = lbp_codes(x, bits=cfg.lbp_bits)            # (R, T - 6, C)
+        want = np.stack([r.codes for r in patient.records])
+        expect(np.array_equal(codes.cpu().numpy(), want),
+               f"patient {patient.pid}: LBP codes on the card differ from lbp_codes_np")
+        res["codes"].append(codes)
+    torch.cuda.synchronize()
+    log(f"[slice] lbp: {PATIENTS} patients x {SEIZURES} records x "
+        f"{tuple(res['codes'][0].shape[1:])} codes equal to lbp_codes_np "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # bank: calibrate + one-shot train per patient
+    t0 = time.perf_counter()
+    thresholds = []
+    for (patient, _), codes in zip(patients, res["codes"]):
+        rec = patient.records[0]
+        labels = torch.as_tensor(ieeg.frame_labels(rec, cfg.window)[None]).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + patient.pid)
+        pipe = HDCPipeline.init(gen, cfg)
+        pipe = pipe.calibrate_density(codes[:1], target=CALIB_TARGET)
+        pipe = pipe.train_one_shot(codes[:1], labels)
+        res["bank"][f"patient{patient.pid}"] = pipe
+        thresholds.append(pipe.cfg.temporal_threshold)
+    torch.cuda.synchronize()
+    log(f"[slice] bank: {PATIENTS} pipelines calibrated (target density "
+        f"{CALIB_TARGET}) + trained in {time.perf_counter() - t0:.2f} s; "
+        f"temporal thresholds {thresholds}")
+
+    # offline detection on the held-out seizures
+    t0 = time.perf_counter()
+    results = []
+    for (patient, _), codes in zip(patients, res["codes"]):
+        pipe = res["bank"][f"patient{patient.pid}"]
+        scores, preds = pipe.infer(codes[1:])
+        res["scores"][patient.pid], res["preds"][patient.pid] = scores, preds
+        p_np = preds.cpu().numpy()
+        for i, rec in enumerate(patient.records[1:]):
+            results.append(metrics.detection_metrics(
+                p_np[i], ieeg.onset_frame(rec, cfg.window)))
+    agg = metrics.aggregate(results)
+    log(f"[slice] detection: {agg['n']} held-out seizures, accuracy "
+        f"{agg['detection_accuracy']:.4f}, mean delay {agg['mean_delay_s']:.3f} s, "
+        f"false-alarm rate {agg['false_alarm_rate']:.4f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    expect(agg["n"] == PATIENTS * (SEIZURES - 1), "detection count")
+
+    # serving: 1024 sessions over the 16 patients
+    owners = [f"patient{i % PATIENTS}" for i in range(SESSIONS)]
+    fleet = StreamingFleet(res["bank"], owners)
+    rng = np.random.default_rng(SEED)
+    # each session streams one of its patient's held-out records
+    host_codes = [c.cpu().numpy() for c in res["codes"]]
+    need = 256 * (3 + STEADY_ROUNDS) + 300
+    streams = np.empty((SESSIONS, need, cfg.channels), np.uint8)
+    for i in range(SESSIONS):
+        rec = host_codes[i % PATIENTS][1 + (i // PATIENTS) % (SEIZURES - 1)]
+        off = int(rng.integers(0, rec.shape[0] - need))
+        streams[i] = rec[off:off + need]
+    pushes, decisions = [], [[] for _ in range(SESSIONS)]
+    pos = 0
+
+    def take(lengths):
+        nonlocal pos
+        chunks = [streams[i, pos:pos + int(n)] for i, n in enumerate(lengths)]
+        pos += int(max(lengths))
+        pushes.append(chunks)
+        return chunks
+
+    def add(dec):
+        for i, d in enumerate(dec):
+            decisions[i].extend(d)
+
+    add(fleet.push(take([256] * SESSIONS)))                  # warm-up
+    torch.cuda.synchronize()
+    # a steady round is timed from the chunk list (validation, packing,
+    # staging, the steps) to the collected decisions
+    round_s = []
+    for _ in range(STEADY_ROUNDS):
+        chunks = take([256] * SESSIONS)
+        t0 = time.perf_counter()
+        dec = fleet.push(chunks)
+        round_s.append(time.perf_counter() - t0)
+        add(dec)
+    # one more steady round under the profiler: device time by kernel
+    chunks = take([256] * SESSIONS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        add(fleet.push(chunks))
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies): an operator's own entry
+    # repeats the device time of the kernels it launched
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0}
+    busy = sum(dev_us.values()) / 1e3
+    med = float(np.median(round_s))
+    idle = (f"{100 * (1 - busy / (wall * 1e3)):.1f}% idle in this round, "
+            f"{100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled median round"
+            if dev_us else "idle share not measured")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[slice] profiled steady round: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy:.3f} ms ({idle}); "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    ragged = rng.integers(0, 257, SESSIONS)
+    ragged[:8] = 0
+    add(fleet.push(take(ragged)))                           # ragged round
+    add(fleet.push(take([300] * SESSIONS)))                 # splits: 256 + 44
+    n_dec = sum(len(d) for d in decisions)
+    expect(all(len(d) > 0 for d in decisions), "a session emitted no decision")
+    expect(np.array_equal(fleet.frame_indices,
+                          np.asarray([len(d) for d in decisions])),
+           "frame indices disagree with the decisions collected")
+    ictal = sum(d.prediction for ds in decisions for d in ds)
+    log(f"[slice] fleet: {SESSIONS} sessions, {len(pushes)} pushes, {n_dec} decisions "
+        f"({ictal} ictal); steady round of 256 cycles/session: median "
+        f"{med * 1e3:.3f} ms host+device, {SESSIONS / med:.1f} session-rounds/s, "
+        f"{SESSIONS * 256 / med / 1e6:.3f} Mcycles/s "
+        f"(all rounds ms: {', '.join(f'{x * 1e3:.3f}' for x in round_s)})")
+    res.update(pushes=pushes, decisions=decisions, owners=owners)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path against the plain path on the CPU
+# ---------------------------------------------------------------------------
+
+def compare_with_plain(patients, res) -> None:
+    from repro_torch.core.pipeline import HDCPipeline
+    from repro_torch.data import ieeg
+    from repro_torch.serve.fleet import StreamingFleet
+
+    cfg = res["cfg"]
+    t0 = time.perf_counter()
+    patient = patients[0][0]
+    card_pipe = res["bank"][f"patient{patient.pid}"]
+    cpu_codes = res["codes"][0].cpu()
+    # training on the CPU from the same codebooks and threshold
+    untrained = HDCPipeline(params=card_pipe.params.to("cpu"), cfg=card_pipe.cfg)
+    labels = torch.as_tensor(ieeg.frame_labels(patient.records[0], cfg.window)[None])
+    cpu_trained = untrained.train_one_shot(cpu_codes[:1], labels)
+    expect(torch.equal(cpu_trained.class_hvs, card_pipe.class_hvs.cpu())
+           and torch.equal(cpu_trained.am_state.counts, card_pipe.am_state.counts.cpu()),
+           "train_one_shot on the card differs from the plain path")
+    cpu_pipe = card_pipe.to("cpu")
+    for i in range(SEIZURES - 1):
+        s, p = cpu_pipe.infer(cpu_codes[1 + i:2 + i])
+        expect(torch.equal(s[0], res["scores"][patient.pid][i].cpu())
+               and torch.equal(p[0], res["preds"][patient.pid][i].cpu()),
+               f"infer on record {i + 1} differs from the plain path")
+    log(f"[plain] patient {patient.pid}: train_one_shot + infer on "
+        f"{SEIZURES - 1} records equal on the CPU ({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    cpu_bank = {pid: p.to("cpu") for pid, p in res["bank"].items()}
+    fleet = StreamingFleet(cpu_bank, res["owners"][:COMPARE_SESSIONS])
+    got = [[] for _ in range(COMPARE_SESSIONS)]
+    for chunks in res["pushes"]:
+        for i, d in enumerate(fleet.push(chunks[:COMPARE_SESSIONS])):
+            got[i].extend(d)
+    n = 0
+    for i in range(COMPARE_SESSIONS):
+        card = res["decisions"][i]
+        expect(len(card) == len(got[i]), f"session {i}: decision count differs")
+        for a, b in zip(card, got[i]):
+            n += 1
+            expect(a.frame_index == b.frame_index and a.prediction == b.prediction
+                   and np.array_equal(a.scores, b.scores)
+                   and np.array_equal(a.frame_hv, b.frame_hv),
+                   f"session {i}: decision {a.frame_index} differs from the plain path")
+    log(f"[plain] fleet: first {COMPARE_SESSIONS} sessions, {n} decisions equal to a "
+        f"CPU fleet ({time.perf_counter() - t0:.2f} s)")
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.hdc_am.ops import am_search
+    from repro_torch.kernels.hdc_encoder.ops import encoder
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.kernels.lbp.ops import lbp_codes
+
+    wrappers = {"lbp": lbp_codes, "hdc_encoder": encoder, "hdc_am": am_search,
+                "hdc_fleet": fleet_counts_kernel}
+    t_start = time.perf_counter()
+    environment()
+    build_kernels()
+
+    t0 = time.perf_counter()
+    patients = make_patients()
+    rec_t = patients[0][0].records[0].codes.shape[0]
+    log(f"[data] {PATIENTS} patients x {SEIZURES} records of {rec_t + 6} samples "
+        f"x 64 channels ({time.perf_counter() - t0:.2f} s)")
+    frames = rec_t // 256
+    shapes = {
+        "lbp": (SEIZURES, rec_t + 6, 64),
+        "encoder": (SEIZURES - 1, frames, 256, 64, 8, 128),
+        "am": ((SEIZURES - 1) * frames, 2, 32),
+        "fleet": (PATIENTS, SESSIONS, 256, 64, 64, 32, 256),
+    }
+    kc = check_kernels(shapes)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = run_main_path(patients)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"[slice] launches on the main path: {launches}")
+    expect(all(n > 0 for n in launches.values()),
+           "a kernel of the main path was never launched")
+
+    compare_with_plain(patients, res)
+
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        r = kc.rows[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

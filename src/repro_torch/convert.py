@@ -1,0 +1,75 @@
+"""Carry a trained pipeline from numpy arrays into the port.
+
+The reference draws its codebooks with ``jax.random``, which
+``torch.Generator`` cannot replay, so parity between the two packages
+transfers them: the caller turns the reference pipeline's leaves into
+numpy arrays (``np.asarray``) and its config into a field mapping, and
+this module rebuilds the port's objects from those.  Nothing here imports
+the reference package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import hv
+from repro_torch.core.classifier import HDCConfig
+from repro_torch.core.im import IMParams
+from repro_torch.core.online import OnlineAMState
+from repro_torch.core.pipeline import HDCPipeline, _check_cfg
+from repro_torch.device import resolve_device
+
+_CFG_FIELDS = {f.name for f in fields(HDCConfig)}
+
+
+def config_from_fields(cfg_fields: Mapping) -> HDCConfig:
+    """The port's ``HDCConfig`` from a mapping of the reference's config
+    fields; ``backend`` (the tensor device selects the path here) is
+    dropped, and any other unknown field raises."""
+    extra = set(cfg_fields) - _CFG_FIELDS - {"backend"}
+    if extra:
+        raise ValueError(f"unknown config fields {sorted(extra)}")
+    return HDCConfig(**{k: v for k, v in cfg_fields.items() if k in _CFG_FIELDS})
+
+
+def pipeline_from_arrays(cfg_fields: Mapping, item_pos: np.ndarray,
+                         elec_pos: np.ndarray, *,
+                         class_hvs: np.ndarray | None = None,
+                         am_counts: np.ndarray | None = None,
+                         am_n: np.ndarray | None = None,
+                         device=None) -> HDCPipeline:
+    """Rebuild a pipeline: codebook positions (uint8), class HVs (uint32
+    words, carried as int32 with the same bits) and the counter-file state,
+    placed on ``device`` (default: the card)."""
+    cfg = config_from_fields(cfg_fields)
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    item = np.asarray(item_pos, np.uint8)
+    elec = np.asarray(elec_pos, np.uint8)
+    want_item = (cfg.channels, cfg.codes, cfg.segments)
+    if item.shape != want_item or elec.shape != (cfg.channels, cfg.segments):
+        raise ValueError(f"codebooks {item.shape}, {elec.shape} do not match "
+                         f"the config ({want_item}, "
+                         f"{(cfg.channels, cfg.segments)})")
+    params = IMParams(item_pos=torch.from_numpy(item.copy()).to(dev),
+                      elec_pos=torch.from_numpy(elec.copy()).to(dev),
+                      dim=cfg.dim, segments=cfg.segments)
+    chvs = None
+    if class_hvs is not None:
+        words = np.asarray(class_hvs)
+        if words.shape != (cfg.n_classes, cfg.words):
+            raise ValueError(f"class_hvs {words.shape} != "
+                             f"{(cfg.n_classes, cfg.words)}")
+        chvs = torch.from_numpy(hv.to_i32(words).copy()).to(dev)
+    state = None
+    if (am_counts is None) != (am_n is None):
+        raise ValueError("am_counts and am_n come together")
+    if am_counts is not None:
+        state = OnlineAMState(
+            counts=torch.from_numpy(np.asarray(am_counts, np.int32).copy()).to(dev),
+            n=torch.from_numpy(np.asarray(am_n, np.int32).copy()).to(dev))
+    return HDCPipeline(params=params, cfg=cfg, class_hvs=chvs, am_state=state)

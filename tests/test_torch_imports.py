@@ -1,0 +1,114 @@
+"""Import and dispatch rules of the PyTorch/CUDA port.
+
+* No module of ``src/repro_torch/`` and nothing in ``chip_smoke.py``
+  imports JAX or anything of the JAX package ``repro`` (the port keeps its
+  own copies of the numpy-only modules it needs).
+* Importing the port builds nothing and needs no CUDA toolkit.
+* Entry points run on the card by default: without a card and without
+  ``device=``, they raise instead of falling back to the CPU.
+* Kernel wrappers take CPU tensors to their plain versions and refuse
+  tensors on any other non-CUDA device.
+
+These checks are structural; no numerical tolerance is involved.
+"""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert, device
+from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+from repro_torch.kernels import build
+from repro_torch.kernels.hdc_am.ops import am_search
+from repro_torch.kernels.hdc_encoder.ops import encoder
+from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+from repro_torch.kernels.lbp.ops import lbp_codes
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_reference(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_every_port_module_imports_without_building():
+    """Importing every module of the package starts no build (the CPU has
+    no nvcc) and loads no kernel library."""
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.serve.fleet" in names and "repro_torch.convert" in names
+    for name in names:
+        importlib.import_module(name)
+    assert build._lib is None
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+
+
+def test_entry_points_without_device_raise_when_no_card(monkeypatch):
+    """Without a card, ``device=None`` raises; ``device="cpu"`` is the only
+    way onto the plain path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HDCConfig(dim=256, channels=4, window=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HDCPipeline.init(torch.Generator().manual_seed(0), cfg)
+    fields = {"dim": 256, "channels": 4, "window": 32}
+    item = np.zeros((4, 64, 8), np.uint8)
+    elec = np.zeros((4, 8), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.pipeline_from_arrays(fields, item, elec)
+    pipe = HDCPipeline.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert pipe.device == torch.device("cpu")
+    assert convert.pipeline_from_arrays(fields, item, elec,
+                                        device="cpu").device.type == "cpu"
+
+
+def test_wrappers_dispatch_on_tensor_device_only():
+    """CPU tensors take the plain version without counting a launch;
+    tensors on another device are refused, never moved."""
+    before = (lbp_codes.launches, encoder.launches, am_search.launches,
+              fleet_counts_kernel.launches)
+    x = torch.zeros(1, 10, 3)
+    assert lbp_codes(x).shape == (1, 4, 3)
+    q = torch.zeros(2, 8, dtype=torch.int32)
+    assert am_search(q, q, mode="overlap", dim=256).shape == (2, 2)
+    assert (lbp_codes.launches, encoder.launches, am_search.launches,
+            fleet_counts_kernel.launches) == before
+    with pytest.raises(ValueError, match="unsupported devices"):
+        lbp_codes(x.to("meta"))
+    with pytest.raises(ValueError, match="unsupported devices"):
+        am_search(q, q.to("meta"), mode="overlap", dim=256)
+    pos = torch.zeros(1, 1, 32, 3, 8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        encoder(pos.to("meta"), torch.zeros(3, 8, dtype=torch.uint8),
+                window=32, segments=8, seg_len=32, temporal_threshold=1)

@@ -1,0 +1,238 @@
+"""The four ported kernels' plain versions (what each wrapper runs for CPU
+tensors) held against the JAX package's Pallas kernels in interpret mode
+and their ``ref.py`` oracles, on the same numpy inputs.
+
+Tolerance: exact equality — every kernel is integer or bit arithmetic (LBP
+compares floats but outputs the comparison bits).  The CUDA kernels
+themselves run only on the card; ``chip_smoke.py`` holds them against
+these plain versions there.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import hv as j_hv
+from repro.core.classifier import HDCConfig as JConfig
+from repro.core import classifier as j_classifier
+from repro.kernels.hdc_am.kernel import am_search_pallas
+from repro.kernels.hdc_am.ref import am_search_ref as j_am_ref
+from repro.kernels.hdc_encoder.kernel import encoder_pallas
+from repro.kernels.hdc_encoder.ops import encode_frames_fused as j_encode_fused
+from repro.kernels.hdc_encoder.ref import encoder_ref as j_encoder_ref
+from repro.kernels.hdc_fleet import ops as j_fleet_ops
+from repro.kernels.hdc_fleet.kernel import fleet_counts_pallas
+from repro.kernels.hdc_fleet.ref import emission_masks as j_emission_masks
+from repro.kernels.lbp.kernel import lbp_pallas
+from repro.kernels.lbp.ref import lbp_ref as j_lbp_ref
+from repro.serve import dispatch as j_dispatch
+from repro_torch.core import hv
+from repro_torch.core.classifier import HDCConfig
+from repro_torch.core.im import IMParams
+from repro_torch.kernels.hdc_am import ops as am_ops
+from repro_torch.kernels.hdc_encoder import ops as enc_ops
+from repro_torch.kernels.hdc_fleet import ops as fleet_ops
+from repro_torch.kernels.hdc_fleet import ref as fleet_ref
+from repro_torch.kernels.lbp import ops as lbp_ops
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+def _jit(fn, **static):
+    """A reference function compiled once with its static arguments bound:
+    the same integer operations, without the op-by-op dispatch that would
+    dominate these tests' time."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def _words(rng, *shape) -> np.ndarray:
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _t(words: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(hv.to_i32(words).copy())
+
+
+# ---------------------------------------------------------------------------
+# lbp
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,c,bits", [(1, 40, 4, 6), (2, 97, 5, 6),
+                                        (3, 20, 64, 3), (1, 12, 7, 8)])
+def test_lbp_plain_matches_pallas_and_ref(b, t, c, bits):
+    rng = np.random.default_rng(t + c)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    x[0, 3, 0] = x[0, 4, 0]            # equal neighbours compare false
+    x[0, 7, c - 1] = np.nan            # NaN compares false
+    got = lbp_ops.lbp_codes(torch.from_numpy(x), bits=bits).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_lbp_ref(jnp.asarray(x), bits=bits)))
+    np.testing.assert_array_equal(
+        got, np.asarray(lbp_pallas(jnp.asarray(x), bits=bits, interpret=True)))
+    assert lbp_ops.lbp_codes.launches == 0   # CPU tensors never launch
+
+
+def test_lbp_rejects_short_streams():
+    with pytest.raises(ValueError):
+        lbp_ops.lbp_codes(torch.zeros(1, 6, 3), bits=6)
+
+
+# ---------------------------------------------------------------------------
+# hdc_encoder
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,window,c,segments,seg_len,thinning,thr_s", [
+    (2, 2, 64, 6, 8, 32, True, 2),
+    (1, 2, 32, 5, 7, 32, False, 1),
+    (1, 1, 32, 64, 8, 128, False, 1),     # paper-shaped channels
+])
+def test_encoder_plain_matches_pallas_and_ref(b, f, window, c, segments,
+                                              seg_len, thinning, thr_s):
+    rng = np.random.default_rng(b * 100 + c)
+    pos = rng.integers(0, seg_len, (b, f, window, c, segments), dtype=np.uint8)
+    elec = rng.integers(0, seg_len, (c, segments), dtype=np.uint8)
+    kw = dict(window=window, segments=segments, seg_len=seg_len,
+              temporal_threshold=max(1, window // 8),
+              spatial_thinning=thinning, spatial_threshold=thr_s)
+    got = hv.to_u32(enc_ops.encoder(torch.from_numpy(pos),
+                                    torch.from_numpy(elec), **kw))
+    np.testing.assert_array_equal(
+        got, np.asarray(_jit(j_encoder_ref, **kw)(jnp.asarray(pos), jnp.asarray(elec))))
+    np.testing.assert_array_equal(
+        got, np.asarray(_jit(encoder_pallas, interpret=True, **kw)(
+            jnp.asarray(pos), jnp.asarray(elec))))
+
+
+def test_encode_frames_fused_matches_reference_wrapper():
+    kw = dict(dim=256, segments=8, channels=6, window=32, temporal_threshold=6)
+    jcfg, tcfg = JConfig(**kw), HDCConfig(**kw)
+    jparams = j_classifier.init_params(jax.random.PRNGKey(2), jcfg)
+    tparams = IMParams(torch.from_numpy(np.asarray(jparams.item_pos).copy()),
+                       torch.from_numpy(np.asarray(jparams.elec_pos).copy()),
+                       256, 8)
+    codes = np.random.default_rng(2).integers(0, 64, (2, 100, 6), dtype=np.uint8)
+    got = enc_ops.encode_frames_fused(tparams, torch.from_numpy(codes), tcfg)
+    want = j_encode_fused(jparams, jnp.asarray(codes), jcfg, use_kernel=False)
+    np.testing.assert_array_equal(hv.to_u32(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# hdc_am
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,c,words", [(1, 2, 32), (7, 2, 32), (300, 4, 32),
+                                       (5, 8, 3)])
+@pytest.mark.parametrize("mode", ["overlap", "hamming"])
+def test_am_plain_matches_pallas_and_ref(b, c, words, mode):
+    rng = np.random.default_rng(b + c)
+    q, cls = _words(rng, b, words), _words(rng, c, words)
+    dim = words * 32
+    got = am_ops.am_search(_t(q), _t(cls), mode=mode, dim=dim).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(j_am_ref(jnp.asarray(q), jnp.asarray(cls), mode=mode, dim=dim)))
+    np.testing.assert_array_equal(
+        got, np.asarray(am_search_pallas(jnp.asarray(q), jnp.asarray(cls),
+                                         mode=mode, dim=dim, interpret=True)))
+
+
+def test_am_leading_dims_and_bad_mode():
+    rng = np.random.default_rng(0)
+    q, cls = _words(rng, 3, 5, 8), _words(rng, 2, 8)
+    out = am_ops.am_search(_t(q), _t(cls), mode="overlap", dim=256)
+    assert out.shape == (3, 5, 2)
+    with pytest.raises(ValueError):
+        am_ops.am_search(_t(q), _t(cls), mode="cosine", dim=256)
+
+
+# ---------------------------------------------------------------------------
+# hdc_fleet
+# ---------------------------------------------------------------------------
+
+def _fleet_operands(rng, s, t, c, k, w, p, window):
+    tables = _words(rng, p, c, k, w)
+    owner = rng.integers(0, p, s).astype(np.int32)
+    codes = rng.integers(0, k + 8, (s, t, c), dtype=np.uint8)  # some OOA
+    filled = rng.integers(0, window, s).astype(np.int32)
+    lengths = rng.integers(0, t + 1, s).astype(np.int32)
+    lengths[0] = 0
+    return tables, owner, codes, filled, lengths
+
+
+@pytest.mark.parametrize("s,t,c,k,w,window", [
+    (4, 64, 6, 64, 8, 32),      # several slots per step
+    (2, 96, 33, 8, 5, 32),      # odd W, channels just past a 32 boundary
+])
+@pytest.mark.parametrize("mode,threshold", [("or", 0), ("thin", 2),
+                                            ("majority", 0)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fleet_kernel_plain_matches_pallas(s, t, c, k, w, window, mode,
+                                           threshold, masked):
+    rng = np.random.default_rng(s * 7 + c)
+    tables, owner, codes, filled, lengths = _fleet_operands(
+        rng, s, t, c, k, w, 3, window)
+    tm = j_emission_masks(jnp.asarray(filled), jnp.asarray(lengths),
+                          t_pad=t, window=window)
+    tm_t = fleet_ref.emission_masks(torch.from_numpy(filled),
+                                    torch.from_numpy(lengths),
+                                    t_pad=t, window=window)
+    np.testing.assert_array_equal(hv.to_u32(tm_t), np.asarray(tm))
+    cm = None
+    if masked:
+        cm = (rng.random((s, c)) > 0.3).astype(np.uint32)
+        cm[0] = 0                     # no live channel at all
+    got = fleet_ops.fleet_counts_kernel(
+        _t(tables), torch.from_numpy(owner), torch.from_numpy(codes), tm_t,
+        mode=mode, dim=w * 32, threshold=threshold,
+        chan_mask=None if cm is None else torch.from_numpy(cm.astype(np.int32)))
+    want = fleet_counts_pallas(jnp.asarray(tables), jnp.asarray(owner),
+                               jnp.asarray(codes), tm, mode=mode, dim=w * 32,
+                               threshold=threshold,
+                               chan_mask=None if cm is None else jnp.asarray(cm),
+                               interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("t,window", [(40, 32), (100, 16)])
+def test_fleet_counts_ref_and_fused_match_reference(t, window):
+    """The prefix-count path on spatial words and the fused path on codes
+    agree with the reference's jnp path, including ragged T (padded)."""
+    cfg_kw = dict(dim=256, segments=8, channels=6, window=window)
+    jcfg, tcfg = JConfig(**cfg_kw), HDCConfig(**cfg_kw)
+    rng = np.random.default_rng(t)
+    tables, owner, codes, filled, lengths = _fleet_operands(
+        rng, 5, t, 6, 64, 8, 2, window)
+    words = _jit(j_dispatch.owner_spatial_codes, cfg=jcfg)(
+        jnp.asarray(tables), jnp.asarray(owner), jnp.asarray(codes))
+    want = _jit(j_fleet_ops.fleet_counts, cfg=jcfg)(
+        words, jnp.asarray(filled), jnp.asarray(lengths))
+    got = fleet_ops.fleet_counts(_t(np.asarray(words)), torch.from_numpy(filled),
+                                 torch.from_numpy(lengths), tcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fused = fleet_ops.fleet_counts_fused(
+        _t(tables), torch.from_numpy(owner), torch.from_numpy(codes),
+        torch.from_numpy(filled), torch.from_numpy(lengths), tcfg)
+    np.testing.assert_array_equal(fused.numpy(), np.asarray(want))
+
+
+def test_spatial_mode_routes_like_reference():
+    for kw in (dict(), dict(spatial_thinning=True, spatial_threshold=3),
+               dict(variant="sparse_naive"), dict(variant="dense")):
+        assert (fleet_ops.spatial_mode(HDCConfig(**kw))
+                == j_fleet_ops.spatial_mode(JConfig(**kw)))
+
+
+def test_bit_transpose_matches_ballot_order():
+    """Plane b, bit j == bit b of cycle j: the LSB-first order the CUDA
+    kernel's per-plane __ballot_sync produces."""
+    rng = np.random.default_rng(9)
+    x = _words(rng, 32, 3)
+    planes = hv.to_u32(hv.bit_transpose32(_t(x)))
+    bits = (x[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1
+    want = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)[:, None, None]
+            ).sum(0).astype(np.uint32)
+    np.testing.assert_array_equal(planes, want)
+    np.testing.assert_array_equal(planes,
+                                  np.asarray(jax.jit(j_hv.bit_transpose32)(jnp.asarray(x))))

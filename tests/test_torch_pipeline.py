@@ -1,0 +1,196 @@
+"""The port's offline chain — data, LBP, calibrate, one-shot train, infer,
+detection metrics — held against the JAX package's ``HDCPipeline``
+(``backend="jnp"``) with the codebooks transferred through
+``repro_torch.convert``.
+
+Tolerance: exact equality.  Calibration's float32 quantile rule is
+repeated operation for operation, so the integer thresholds agree; every
+other stage is integer or bit arithmetic.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import metrics as j_metrics
+from repro.core.pipeline import HDCConfig as JConfig
+from repro.core.pipeline import HDCPipeline as JPipeline
+from repro.data import ieeg as j_ieeg
+from repro_torch import convert
+from repro_torch.core import hv, metrics
+from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+from repro_torch.data import ieeg
+from repro_torch.kernels.lbp.ops import lbp_codes
+
+jax.config.update("jax_platform_name", "cpu")
+
+REC = dict(pre_s=2.0, ictal_s=3.0, post_s=1.0)
+
+
+def _records(mod, seed, channels, n=3, transform=None):
+    rng = np.random.default_rng(seed)
+    return [mod.make_record(rng, channels=channels, signal_transform=transform,
+                            **REC) for _ in range(n)]
+
+
+def _transfer(jp: JPipeline, device="cpu") -> HDCPipeline:
+    kw = {}
+    if jp.class_hvs is not None:
+        kw = dict(class_hvs=np.asarray(jp.class_hvs),
+                  am_counts=np.asarray(jp.am_state.counts),
+                  am_n=np.asarray(jp.am_state.n))
+    return convert.pipeline_from_arrays(
+        dataclasses.asdict(jp.cfg), np.asarray(jp.params.item_pos),
+        np.asarray(jp.params.elec_pos), device=device, **kw)
+
+
+# ---------------------------------------------------------------------------
+# data and metrics copies
+# ---------------------------------------------------------------------------
+
+def test_data_copy_matches_reference_and_lbp_recovers_codes():
+    """Same seed, same records; the identity transform hands back the raw
+    signal, whose LBP codes equal the record's numpy codes."""
+    signals = []
+
+    def keep(x, rng):
+        signals.append(x)
+        return x
+
+    ours = _records(ieeg, 3, 6, transform=keep)
+    ref = _records(j_ieeg, 3, 6)
+    for a, b, x in zip(ours, ref, signals):
+        np.testing.assert_array_equal(a.codes, b.codes)
+        np.testing.assert_array_equal(a.label, b.label)
+        assert a.onset_sample == b.onset_sample
+        got = lbp_codes(torch.from_numpy(x.T.copy())[None], bits=6)[0]
+        np.testing.assert_array_equal(got.numpy(), a.codes)
+    for window in (32, 256):
+        np.testing.assert_array_equal(ieeg.frame_labels(ours[0], window),
+                                      j_ieeg.frame_labels(ref[0], window))
+        assert ieeg.onset_frame(ours[0], window) == j_ieeg.onset_frame(ref[0], window)
+
+
+def test_make_patient_copy_matches_reference():
+    a = ieeg.make_patient(5, n_seizures=1, channels=4)
+    b = j_ieeg.make_patient(5, n_seizures=1, channels=4)
+    np.testing.assert_array_equal(a.records[0].codes, b.records[0].codes)
+
+
+@pytest.mark.parametrize("k,m", [(2, 3), (1, 1), (3, 4)])
+def test_metrics_copy_matches_reference(k, m):
+    rng = np.random.default_rng(k * 10 + m)
+    res_a, res_b = [], []
+    for _ in range(6):
+        preds = rng.integers(0, 2, 40)
+        onset = int(rng.integers(0, 40))
+        np.testing.assert_array_equal(metrics.postprocess(preds, k=k, m=m),
+                                      j_metrics.postprocess(preds, k=k, m=m))
+        a = metrics.detection_metrics(preds, onset, k=k, m=m, horizon_frames=10)
+        b = j_metrics.detection_metrics(preds, onset, k=k, m=m, horizon_frames=10)
+        assert dataclasses.astuple(a) == pytest.approx(dataclasses.astuple(b), nan_ok=True)
+        res_a.append(a)
+        res_b.append(b)
+    assert metrics.aggregate(res_a) == pytest.approx(j_metrics.aggregate(res_b), nan_ok=True)
+
+
+# ---------------------------------------------------------------------------
+# the offline chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("channels,window,thinning", [(6, 32, False),
+                                                      (7, 64, False),
+                                                      (6, 32, True)])
+def test_pipeline_chain_matches_reference(channels, window, thinning):
+    cfg_kw = dict(dim=256, segments=8, channels=channels, window=window,
+                  spatial_thinning=thinning, spatial_threshold=2)
+    recs = _records(j_ieeg, channels, channels)
+    train = recs[0]
+    codes = train.codes[None]
+    labels = j_ieeg.frame_labels(train, window)[None]
+    jp = JPipeline.init(jax.random.PRNGKey(channels), JConfig(backend="jnp", **cfg_kw))
+    tp = _transfer(jp)
+    assert tp.cfg == HDCConfig(**cfg_kw)
+
+    for target in (0.15, 0.25, 0.4):
+        assert (tp.calibrate_density(codes, target).cfg.temporal_threshold
+                == jp.calibrate_density(jnp.asarray(codes), target).cfg.temporal_threshold)
+    np.testing.assert_array_equal(tp.frame_counts(codes).numpy(),
+                                  np.asarray(jp.frame_counts(jnp.asarray(codes))))
+    jp = jp.calibrate_density(jnp.asarray(codes), 0.25)
+    tp = tp.calibrate_density(codes, 0.25)
+    jp = jp.train_one_shot(jnp.asarray(codes), jnp.asarray(labels))
+    tp = tp.train_one_shot(codes, labels)
+    np.testing.assert_array_equal(hv.to_u32(tp.class_hvs), np.asarray(jp.class_hvs))
+    np.testing.assert_array_equal(tp.am_state.counts.numpy(), np.asarray(jp.am_state.counts))
+    np.testing.assert_array_equal(tp.am_state.n.numpy(), np.asarray(jp.am_state.n))
+
+    test = np.stack([r.codes for r in recs[1:]])
+    js, jpred = jp.infer(jnp.asarray(test))
+    ts, tpred = tp.infer(test)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tpred.numpy(), np.asarray(jpred))
+    frames = tp.encode_frames(test)
+    np.testing.assert_array_equal(hv.to_u32(frames),
+                                  np.asarray(jp.encode_frames(jnp.asarray(test))))
+    np.testing.assert_array_equal(tp.scores(frames).numpy(),
+                                  np.asarray(jp.scores(jp.encode_frames(jnp.asarray(test)))))
+    for i, rec in enumerate(recs[1:]):
+        onset = j_ieeg.onset_frame(rec, window)
+        assert (dataclasses.astuple(metrics.detection_metrics(tpred[i].numpy(), onset))
+                == pytest.approx(dataclasses.astuple(j_metrics.detection_metrics(
+                    np.asarray(jpred[i]), onset)), nan_ok=True))
+
+
+def test_transferred_trained_pipeline_scores_like_reference():
+    """A trained reference pipeline carried across whole (class HVs and
+    counter file) infers identically."""
+    cfg = JConfig(dim=256, segments=8, channels=6, window=32, temporal_threshold=9)
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 64, (2, 4 * 32, 6), dtype=np.uint8)
+    labels = np.asarray([[0, 1, 0, 1], [1, 1, 0, 0]])
+    jp = JPipeline.init(jax.random.PRNGKey(4), cfg).train_one_shot(
+        jnp.asarray(codes), jnp.asarray(labels))
+    tp = _transfer(jp)
+    np.testing.assert_array_equal(hv.to_u32(tp.class_hvs), np.asarray(jp.class_hvs))
+    test = rng.integers(0, 64, (3, 5 * 32 + 3, 6), dtype=np.uint8)
+    np.testing.assert_array_equal(tp.infer(test)[0].numpy(),
+                                  np.asarray(jp.infer(jnp.asarray(test))[0]))
+
+
+def test_pipeline_guards():
+    cfg = HDCConfig(dim=256, channels=4, window=32)
+    pipe = HDCPipeline.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    codes = np.random.default_rng(0).integers(0, 64, (1, 96, 4), dtype=np.uint8)
+    with pytest.raises(ValueError, match="no class HVs"):
+        pipe.infer(codes)
+    with pytest.raises(ValueError, match="no examples"):
+        pipe.train_one_shot(codes, np.zeros((1, 3), np.int64))
+    with pytest.raises(ValueError, match="labels must be"):
+        pipe.train_one_shot(codes, np.asarray([[0, 1, 2]]))
+    trained = pipe.train_one_shot(codes, np.asarray([[0, 1, 0]]))
+    assert trained.with_cfg(temporal_threshold=cfg.temporal_threshold).class_hvs is not None
+    assert trained.with_cfg(temporal_threshold=7).class_hvs is None
+    with pytest.raises(ValueError):
+        trained.with_cfg(dim=512)
+    with pytest.raises(ValueError, match="not ported"):
+        HDCPipeline.init(torch.Generator(), HDCConfig(variant="dense"), device="cpu")
+
+
+def test_convert_checks_fields_and_shapes():
+    cfg = JConfig(dim=256, channels=4)
+    fields = dataclasses.asdict(cfg)
+    assert convert.config_from_fields(fields) == HDCConfig(dim=256, channels=4)
+    with pytest.raises(ValueError, match="unknown config"):
+        convert.config_from_fields({**fields, "mesh": 2})
+    with pytest.raises(ValueError, match="do not match"):
+        convert.pipeline_from_arrays(fields, np.zeros((4, 64, 7), np.uint8),
+                                     np.zeros((4, 8), np.uint8), device="cpu")
+    with pytest.raises(ValueError, match="come together"):
+        convert.pipeline_from_arrays(fields, np.zeros((4, 64, 8), np.uint8),
+                                     np.zeros((4, 8), np.uint8), device="cpu",
+                                     am_counts=np.zeros((2, 256), np.int32))
