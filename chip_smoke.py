@@ -5,21 +5,33 @@
 Phases (one line each, any failure exits non-zero):
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch/CUDA;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``lbp``, ``hdc_encoder``, ``hdc_am``, ``hdc_fleet``, ``dense_hdc``) with
    ``nvcc`` for ``sm_90a``;
-3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and one small odd shape (exact equality: all integer or
+3. every kernel against its plain PyTorch version on the card, at the
+   paths' shapes and one small odd shape (exact equality: all integer or
    bit arithmetic), with CUDA-event times and the card's least time for
    the same work;
-4. the main path at the paper's geometry: raw iEEG -> LBP codes on the card
-   for 16 synthetic patients, per-patient calibration + one-shot training,
-   detection on the held-out seizures, then a 1024-session streaming fleet
-   (warm-up, steady, ragged and longer-than-bucket rounds);
+4. the main path (``sparse_compim``) at the paper's geometry: raw iEEG ->
+   LBP codes on the card for 16 synthetic patients, per-patient
+   calibration + one-shot training, detection on the held-out seizures,
+   then a 1024-session streaming fleet (warm-up, steady, profiled, ragged
+   and longer-than-bucket rounds; fleet kernel in ``or`` mode);
 5. the main path against the plain path on the CPU: one patient's
-   training and inference, and the first 32 fleet sessions.
+   training and inference, and the first 32 fleet sessions;
+6. the dense path at the paper's geometry: the same 16 patients' codes
+   through ``dense_hdc`` and the AM in ``hamming`` mode (one-shot training,
+   detection), then a 1024-session dense fleet in the same rounds (fleet
+   kernel in ``majority`` mode), held against the CPU plain path as in 5;
+7. the ``sparse_naive`` path, short: 2 patients on 2048-cycle slices
+   (calibration, training, inference through the encoder kernel with
+   thinning forced on) and a 64-session fleet (``thin`` mode), all held
+   against the CPU's bit-domain plain path.
 
-The line before the last is a JSON object with every kernel's launches on
-the main path, times and bound; the last line is the device summary.
+Each path's kernel launches are counted from zero just before it and read
+just after.  The line before the last is a JSON object with every kernel's
+launches over the paths, times and bound; the last line is the device
+summary.
 """
 
 from __future__ import annotations
@@ -42,6 +54,12 @@ CALIB_TARGET = 0.25     # max post-thinning frame density
 STEADY_ROUNDS = 6
 COMPARE_SESSIONS = 32
 SEED = 0
+# the sparse_naive check: its CPU plain path is bit-domain and slow at paper
+# width, so it runs on 2048-cycle slices around the training onset
+NAIVE_PATIENTS = 2
+NAIVE_SESSIONS = 64
+NAIVE_CYCLES = 2048
+NAIVE_STEADY_ROUNDS = 2
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # 32-bit rate outside the tensor cores, used for the integer/bit operations
@@ -57,6 +75,14 @@ KERNELS = {
                "src/repro/kernels/hdc_am/kernel.py:42"),
     "hdc_fleet": ("src/repro_torch/kernels/csrc/hdc_fleet.cu",
                   "src/repro/kernels/hdc_fleet/kernel.py:134"),
+    "dense_hdc": ("src/repro_torch/kernels/csrc/dense_hdc.cu",
+                  "src/repro/kernels/dense_hdc/kernel.py:50"),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet"),
+    "dense": ("dense_hdc", "hdc_am", "hdc_fleet"),
+    "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet"),
 }
 
 
@@ -159,6 +185,7 @@ class KernelCheck:
 
 
 def check_kernels(shapes: dict) -> KernelCheck:
+    from repro_torch.kernels.dense_hdc import ops as dense_ops, ref as dense_ref
     from repro_torch.kernels.hdc_am import ops as am_ops, ref as am_ref
     from repro_torch.kernels.hdc_encoder import ops as enc_ops, ref as enc_ref
     from repro_torch.kernels.hdc_fleet import ops as fl_ops, ref as fl_ref
@@ -237,11 +264,29 @@ def check_kernels(shapes: dict) -> KernelCheck:
                            n_bytes=n_bytes, n_ops=n_ops,
                            main=case == "main" and mode == "or" and cm is None,
                            reps=10, plain_reps=2)
+
+    # dense_hdc: codes (N, window, C) uint8, table (C, K, W) -> (N, W); the
+    # odd case has a window that is no multiple of 16, odd C and W, and
+    # out-of-alphabet codes
+    for case, (n, win, c, k, w) in (("main", shapes["dense"]),
+                                    ("odd", (6, 40, 7, 64, 3))):
+        codes = torch.randint(0, k + 8 if case == "odd" else k, (n, win, c),
+                              generator=g, dtype=torch.uint8).cuda()
+        table, elec = _rand_words(g, c, k, w), _rand_words(g, c, w)
+        d = w * 32
+        kw = dict(window=win, dim=d)
+        kc.compare("dense_hdc", f"{case} codes{(n, win, c)} table{(c, k, w)}",
+                   dense_ops.dense_encoder,
+                   lambda: dense_ops.dense_encoder(codes, table, elec, **kw),
+                   lambda: dense_ref.dense_encoder_plain(codes, table, elec, **kw),
+                   n_bytes=codes.numel() + (table.numel() + elec.numel() + n * w) * 4,
+                   n_ops=n * win * c * d, main=case == "main", reps=10,
+                   plain_reps=2)
     return kc
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4-7: the paths
 # ---------------------------------------------------------------------------
 
 def make_patients():
@@ -262,78 +307,92 @@ def make_patients():
     return out
 
 
-def run_main_path(patients) -> dict:
-    from repro_torch.core import metrics
-    from repro_torch.core.pipeline import HDCConfig, HDCPipeline
-    from repro_torch.data import ieeg
+def lbp_on_card(patients, bits: int) -> list[torch.Tensor]:
+    """Raw signal -> LBP codes on the card, held against the numpy coder."""
     from repro_torch.kernels.lbp.ops import lbp_codes
-    from repro_torch.serve.fleet import StreamingFleet
 
-    cfg = HDCConfig()
-    res = {"cfg": cfg, "bank": {}, "codes": [], "preds": {}, "scores": {}}
-
-    # raw signal -> LBP codes on the card, held against the numpy coder
     t0 = time.perf_counter()
+    out = []
     for patient, signals in patients:
         x = torch.from_numpy(np.stack(signals)).cuda().transpose(1, 2).contiguous()
-        codes = lbp_codes(x, bits=cfg.lbp_bits)            # (R, T - 6, C)
+        codes = lbp_codes(x, bits=bits)                    # (R, T - 6, C)
         want = np.stack([r.codes for r in patient.records])
         expect(np.array_equal(codes.cpu().numpy(), want),
                f"patient {patient.pid}: LBP codes on the card differ from lbp_codes_np")
-        res["codes"].append(codes)
+        out.append(codes)
     torch.cuda.synchronize()
-    log(f"[slice] lbp: {PATIENTS} patients x {SEIZURES} records x "
-        f"{tuple(res['codes'][0].shape[1:])} codes equal to lbp_codes_np "
+    log(f"[sparse_compim] lbp: {PATIENTS} patients x {SEIZURES} records x "
+        f"{tuple(out[0].shape[1:])} codes equal to lbp_codes_np "
         f"({time.perf_counter() - t0:.2f} s)")
+    return out
 
-    # bank: calibrate + one-shot train per patient
+
+def train_and_detect(tag: str, cfg, records, calibrate: bool) -> dict:
+    """Per patient: init from a CUDA generator, optional calibration, one-shot
+    training on record 0 and inference on the others.  ``records`` is a list
+    of (pid, codes (R, T, C) on the card, labels (R, F), onset frames (R,))."""
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import HDCPipeline
+
+    res = {"cfg": cfg, "calibrate": calibrate, "bank": {}, "records": records,
+           "preds": {}, "scores": {}}
     t0 = time.perf_counter()
     thresholds = []
-    for (patient, _), codes in zip(patients, res["codes"]):
-        rec = patient.records[0]
-        labels = torch.as_tensor(ieeg.frame_labels(rec, cfg.window)[None]).cuda()
-        gen = torch.Generator(device="cuda").manual_seed(SEED + patient.pid)
+    for pid, codes, labels, _ in records:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + pid)
         pipe = HDCPipeline.init(gen, cfg)
-        pipe = pipe.calibrate_density(codes[:1], target=CALIB_TARGET)
-        pipe = pipe.train_one_shot(codes[:1], labels)
-        res["bank"][f"patient{patient.pid}"] = pipe
+        if calibrate:
+            pipe = pipe.calibrate_density(codes[:1], target=CALIB_TARGET)
+        pipe = pipe.train_one_shot(codes[:1], torch.as_tensor(labels[:1]).cuda())
+        res["bank"][f"patient{pid}"] = pipe
         thresholds.append(pipe.cfg.temporal_threshold)
     torch.cuda.synchronize()
-    log(f"[slice] bank: {PATIENTS} pipelines calibrated (target density "
-        f"{CALIB_TARGET}) + trained in {time.perf_counter() - t0:.2f} s; "
-        f"temporal thresholds {thresholds}")
+    log(f"[{tag}] bank: {len(records)} pipelines "
+        + (f"calibrated (target density {CALIB_TARGET}) + " if calibrate else "")
+        + f"trained in {time.perf_counter() - t0:.2f} s"
+        + (f"; temporal thresholds {thresholds}" if calibrate else ""))
 
-    # offline detection on the held-out seizures
     t0 = time.perf_counter()
-    results = []
-    for (patient, _), codes in zip(patients, res["codes"]):
-        pipe = res["bank"][f"patient{patient.pid}"]
-        scores, preds = pipe.infer(codes[1:])
-        res["scores"][patient.pid], res["preds"][patient.pid] = scores, preds
+    results, correct, total = [], 0, 0
+    for pid, codes, labels, onsets in records:
+        scores, preds = res["bank"][f"patient{pid}"].infer(codes[1:])
+        res["scores"][pid], res["preds"][pid] = scores, preds
         p_np = preds.cpu().numpy()
-        for i, rec in enumerate(patient.records[1:]):
-            results.append(metrics.detection_metrics(
-                p_np[i], ieeg.onset_frame(rec, cfg.window)))
+        correct += int((p_np == labels[1:]).sum())
+        total += p_np.size
+        for i in range(p_np.shape[0]):
+            results.append(metrics.detection_metrics(p_np[i], onsets[1 + i]))
     agg = metrics.aggregate(results)
-    log(f"[slice] detection: {agg['n']} held-out seizures, accuracy "
+    log(f"[{tag}] detection: {agg['n']} held-out seizures, accuracy "
         f"{agg['detection_accuracy']:.4f}, mean delay {agg['mean_delay_s']:.3f} s, "
-        f"false-alarm rate {agg['false_alarm_rate']:.4f} "
-        f"({time.perf_counter() - t0:.2f} s)")
-    expect(agg["n"] == PATIENTS * (SEIZURES - 1), "detection count")
+        f"false-alarm rate {agg['false_alarm_rate']:.4f}; frame accuracy "
+        f"{correct / total:.4f} ({time.perf_counter() - t0:.2f} s)")
+    expect(agg["n"] == sum(r[1].shape[0] - 1 for r in records), f"{tag}: detection count")
+    return res
 
-    # serving: 1024 sessions over the 16 patients
-    owners = [f"patient{i % PATIENTS}" for i in range(SESSIONS)]
-    fleet = StreamingFleet(res["bank"], owners)
+
+def serve_fleet(tag: str, res: dict, sessions: int, steady_rounds: int,
+                profile: bool) -> None:
+    """A streaming fleet over the bank: each session streams one of its
+    patient's held-out records in a warm-up round, ``steady_rounds`` timed
+    steady rounds of 256 cycles, one profiled round (``profile``), a ragged
+    round and a 300-cycle round that splits."""
+    from repro_torch.serve.fleet import StreamingFleet
+
+    cfg, bank = res["cfg"], res["bank"]
+    n_pat = len(bank)
+    owners = [list(bank)[i % n_pat] for i in range(sessions)]
+    fleet = StreamingFleet(bank, owners)
     rng = np.random.default_rng(SEED)
-    # each session streams one of its patient's held-out records
-    host_codes = [c.cpu().numpy() for c in res["codes"]]
-    need = 256 * (3 + STEADY_ROUNDS) + 300
-    streams = np.empty((SESSIONS, need, cfg.channels), np.uint8)
-    for i in range(SESSIONS):
-        rec = host_codes[i % PATIENTS][1 + (i // PATIENTS) % (SEIZURES - 1)]
+    host_codes = [r[1].cpu().numpy() for r in res["records"]]
+    need = 256 * (2 + steady_rounds + int(profile)) + 300
+    streams = np.empty((sessions, need, cfg.channels), np.uint8)
+    for i in range(sessions):
+        held_out = host_codes[i % n_pat][1:]
+        rec = held_out[(i // n_pat) % held_out.shape[0]]
         off = int(rng.integers(0, rec.shape[0] - need))
         streams[i] = rec[off:off + need]
-    pushes, decisions = [], [[] for _ in range(SESSIONS)]
+    pushes, decisions = [], [[] for _ in range(sessions)]
     pos = 0
 
     def take(lengths):
@@ -347,106 +406,150 @@ def run_main_path(patients) -> dict:
         for i, d in enumerate(dec):
             decisions[i].extend(d)
 
-    add(fleet.push(take([256] * SESSIONS)))                  # warm-up
+    add(fleet.push(take([256] * sessions)))                  # warm-up
     torch.cuda.synchronize()
     # a steady round is timed from the chunk list (validation, packing,
     # staging, the steps) to the collected decisions
     round_s = []
-    for _ in range(STEADY_ROUNDS):
-        chunks = take([256] * SESSIONS)
+    for _ in range(steady_rounds):
+        chunks = take([256] * sessions)
         t0 = time.perf_counter()
         dec = fleet.push(chunks)
         round_s.append(time.perf_counter() - t0)
         add(dec)
-    # one more steady round under the profiler: device time by kernel
-    chunks = take([256] * SESSIONS)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        add(fleet.push(chunks))
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): an operator's own entry
-    # repeats the device time of the kernels it launched
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}
-    busy = sum(dev_us.values()) / 1e3
     med = float(np.median(round_s))
-    idle = (f"{100 * (1 - busy / (wall * 1e3)):.1f}% idle in this round, "
-            f"{100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled median round"
-            if dev_us else "idle share not measured")
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[slice] profiled steady round: wall {wall * 1e3:.3f} ms, device busy "
-        f"{busy:.3f} ms ({idle}); "
-        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
-    ragged = rng.integers(0, 257, SESSIONS)
+    if profile:
+        # one more steady round under the profiler: device time by kernel
+        chunks = take([256] * sessions)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            add(fleet.push(chunks))
+            wall = time.perf_counter() - t0
+        # device-side events only (kernels, copies): an operator's own entry
+        # repeats the device time of the kernels it launched
+        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+        busy = sum(dev_us.values()) / 1e3
+        idle = (f"{100 * (1 - busy / (wall * 1e3)):.1f}% idle in this round, "
+                f"{100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled median round"
+                if dev_us else "idle share not measured")
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[{tag}] profiled steady round: wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy:.3f} ms ({idle}); "
+            + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    ragged = rng.integers(0, 257, sessions)
     ragged[:8] = 0
     add(fleet.push(take(ragged)))                           # ragged round
-    add(fleet.push(take([300] * SESSIONS)))                 # splits: 256 + 44
+    add(fleet.push(take([300] * sessions)))                 # splits: 256 + 44
     n_dec = sum(len(d) for d in decisions)
-    expect(all(len(d) > 0 for d in decisions), "a session emitted no decision")
+    expect(all(len(d) > 0 for d in decisions), f"{tag}: a session emitted no decision")
     expect(np.array_equal(fleet.frame_indices,
                           np.asarray([len(d) for d in decisions])),
-           "frame indices disagree with the decisions collected")
+           f"{tag}: frame indices disagree with the decisions collected")
     ictal = sum(d.prediction for ds in decisions for d in ds)
-    log(f"[slice] fleet: {SESSIONS} sessions, {len(pushes)} pushes, {n_dec} decisions "
+    log(f"[{tag}] fleet: {sessions} sessions, {len(pushes)} pushes, {n_dec} decisions "
         f"({ictal} ictal); steady round of 256 cycles/session: median "
-        f"{med * 1e3:.3f} ms host+device, {SESSIONS / med:.1f} session-rounds/s, "
-        f"{SESSIONS * 256 / med / 1e6:.3f} Mcycles/s "
+        f"{med * 1e3:.3f} ms host+device, {sessions / med:.1f} session-rounds/s, "
+        f"{sessions * 256 / med / 1e6:.3f} Mcycles/s "
         f"(all rounds ms: {', '.join(f'{x * 1e3:.3f}' for x in round_s)})")
     res.update(pushes=pushes, decisions=decisions, owners=owners)
-    return res
 
 
-# ---------------------------------------------------------------------------
-# phase 5: the main path against the plain path on the CPU
-# ---------------------------------------------------------------------------
-
-def compare_with_plain(patients, res) -> None:
+def compare_with_plain(tag: str, res: dict, compare_sessions: int) -> None:
+    """Patient 0's calibration (where the path calibrates), training and
+    inference, and the first ``compare_sessions`` fleet sessions, on the
+    CPU's plain path from the same codebooks."""
     from repro_torch.core.pipeline import HDCPipeline
-    from repro_torch.data import ieeg
     from repro_torch.serve.fleet import StreamingFleet
 
-    cfg = res["cfg"]
     t0 = time.perf_counter()
-    patient = patients[0][0]
-    card_pipe = res["bank"][f"patient{patient.pid}"]
-    cpu_codes = res["codes"][0].cpu()
-    # training on the CPU from the same codebooks and threshold
-    untrained = HDCPipeline(params=card_pipe.params.to("cpu"), cfg=card_pipe.cfg)
-    labels = torch.as_tensor(ieeg.frame_labels(patient.records[0], cfg.window)[None])
-    cpu_trained = untrained.train_one_shot(cpu_codes[:1], labels)
+    pid, codes, labels, _ = res["records"][0]
+    calibrate = res["calibrate"]
+    card_pipe = res["bank"][f"patient{pid}"]
+    cpu_codes = codes.cpu()
+    untrained = HDCPipeline(params=card_pipe.params.to("cpu"), cfg=res["cfg"])
+    if calibrate:
+        untrained = untrained.calibrate_density(cpu_codes[:1], target=CALIB_TARGET)
+        expect(untrained.cfg == card_pipe.cfg,
+               f"{tag}: calibration on the card differs from the plain path")
+    cpu_trained = untrained.train_one_shot(cpu_codes[:1], torch.as_tensor(labels[:1]))
     expect(torch.equal(cpu_trained.class_hvs, card_pipe.class_hvs.cpu())
            and torch.equal(cpu_trained.am_state.counts, card_pipe.am_state.counts.cpu()),
-           "train_one_shot on the card differs from the plain path")
+           f"{tag}: train_one_shot on the card differs from the plain path")
     cpu_pipe = card_pipe.to("cpu")
-    for i in range(SEIZURES - 1):
+    for i in range(codes.shape[0] - 1):
         s, p = cpu_pipe.infer(cpu_codes[1 + i:2 + i])
-        expect(torch.equal(s[0], res["scores"][patient.pid][i].cpu())
-               and torch.equal(p[0], res["preds"][patient.pid][i].cpu()),
-               f"infer on record {i + 1} differs from the plain path")
-    log(f"[plain] patient {patient.pid}: train_one_shot + infer on "
-        f"{SEIZURES - 1} records equal on the CPU ({time.perf_counter() - t0:.2f} s)")
+        expect(torch.equal(s[0], res["scores"][pid][i].cpu())
+               and torch.equal(p[0], res["preds"][pid][i].cpu()),
+               f"{tag}: infer on record {i + 1} differs from the plain path")
+    log(f"[{tag}] plain: patient {pid}: "
+        + ("calibration + " if calibrate else "")
+        + f"train_one_shot + infer on {codes.shape[0] - 1} records equal on the "
+        f"CPU ({time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
-    cpu_bank = {pid: p.to("cpu") for pid, p in res["bank"].items()}
-    fleet = StreamingFleet(cpu_bank, res["owners"][:COMPARE_SESSIONS])
-    got = [[] for _ in range(COMPARE_SESSIONS)]
+    cpu_bank = {p: pipe.to("cpu") for p, pipe in res["bank"].items()}
+    fleet = StreamingFleet(cpu_bank, res["owners"][:compare_sessions])
+    got = [[] for _ in range(compare_sessions)]
     for chunks in res["pushes"]:
-        for i, d in enumerate(fleet.push(chunks[:COMPARE_SESSIONS])):
+        for i, d in enumerate(fleet.push(chunks[:compare_sessions])):
             got[i].extend(d)
     n = 0
-    for i in range(COMPARE_SESSIONS):
+    for i in range(compare_sessions):
         card = res["decisions"][i]
-        expect(len(card) == len(got[i]), f"session {i}: decision count differs")
+        expect(len(card) == len(got[i]), f"{tag}: session {i}: decision count differs")
         for a, b in zip(card, got[i]):
             n += 1
             expect(a.frame_index == b.frame_index and a.prediction == b.prediction
                    and np.array_equal(a.scores, b.scores)
                    and np.array_equal(a.frame_hv, b.frame_hv),
-                   f"session {i}: decision {a.frame_index} differs from the plain path")
-    log(f"[plain] fleet: first {COMPARE_SESSIONS} sessions, {n} decisions equal to a "
-        f"CPU fleet ({time.perf_counter() - t0:.2f} s)")
+                   f"{tag}: session {i}: decision {a.frame_index} differs from "
+                   "the plain path")
+    log(f"[{tag}] plain: fleet: first {compare_sessions} sessions, {n} decisions "
+        f"equal to a CPU fleet ({time.perf_counter() - t0:.2f} s)")
+
+
+def naive_records(patients, codes) -> list:
+    """NAIVE_CYCLES-cycle slices of each record, centred on its onset frame
+    so that training sees both classes."""
+    from repro_torch.data import ieeg
+
+    out = []
+    frames = NAIVE_CYCLES // 256
+    for (patient, _), c in zip(patients[:NAIVE_PATIENTS], codes):
+        f0s = [ieeg.onset_frame(r, 256) - frames // 2 for r in patient.records]
+        sl = torch.stack([c[i, f0 * 256:(f0 + frames) * 256]
+                          for i, f0 in enumerate(f0s)])
+        labels = np.stack([ieeg.frame_labels(r, 256)[f0:f0 + frames]
+                           for r, f0 in zip(patient.records, f0s)])
+        out.append((patient.pid, sl.contiguous(), labels,
+                    [frames // 2] * len(f0s)))
+    return out
+
+
+class Launches:
+    """Reads each path's kernel launches, counted from zero."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+        self.paths: dict[str, dict] = {}
+
+    def start(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def stop(self, path: str) -> None:
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in self.wrappers.items()}
+        self.paths[path] = counts
+        log(f"[{path}] launches on this path: {counts}")
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        expect(not missing, f"{path}: kernels {missing} were never launched")
+
+    def total(self, name: str) -> int:
+        return sum(c[name] for c in self.paths.values())
 
 
 # ---------------------------------------------------------------------------
@@ -456,13 +559,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.pipeline import HDCConfig
+    from repro_torch.data import ieeg
+    from repro_torch.kernels.dense_hdc.ops import dense_encoder
     from repro_torch.kernels.hdc_am.ops import am_search
     from repro_torch.kernels.hdc_encoder.ops import encoder
     from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
     from repro_torch.kernels.lbp.ops import lbp_codes
 
-    wrappers = {"lbp": lbp_codes, "hdc_encoder": encoder, "hdc_am": am_search,
-                "hdc_fleet": fleet_counts_kernel}
+    launches = Launches({"lbp": lbp_codes, "hdc_encoder": encoder,
+                         "hdc_am": am_search, "hdc_fleet": fleet_counts_kernel,
+                         "dense_hdc": dense_encoder})
     t_start = time.perf_counter()
     environment()
     build_kernels()
@@ -478,25 +585,44 @@ def main() -> int:
         "encoder": (SEIZURES - 1, frames, 256, 64, 8, 128),
         "am": ((SEIZURES - 1) * frames, 2, 32),
         "fleet": (PATIENTS, SESSIONS, 256, 64, 64, 32, 256),
+        "dense": ((SEIZURES - 1) * frames, 256, 64, 64, 32),
     }
     kc = check_kernels(shapes)
 
-    for fn in wrappers.values():
-        fn.launches = 0
-    res = run_main_path(patients)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"[slice] launches on the main path: {launches}")
-    expect(all(n > 0 for n in launches.values()),
-           "a kernel of the main path was never launched")
+    # phases 4-5: the main path
+    launches.start()
+    cfg = HDCConfig()
+    codes = lbp_on_card(patients, cfg.lbp_bits)
+    records = [(p.pid, c, np.stack([ieeg.frame_labels(r, 256) for r in p.records]),
+                [ieeg.onset_frame(r, 256) for r in p.records])
+               for (p, _), c in zip(patients, codes)]
+    res = train_and_detect("sparse_compim", cfg, records, calibrate=True)
+    serve_fleet("sparse_compim", res, SESSIONS, STEADY_ROUNDS, profile=True)
+    launches.stop("sparse_compim")
+    compare_with_plain("sparse_compim", res, COMPARE_SESSIONS)
 
-    compare_with_plain(patients, res)
+    # phase 6: dense, the same codes
+    launches.start()
+    res = train_and_detect("dense", HDCConfig(variant="dense"), records,
+                           calibrate=False)
+    serve_fleet("dense", res, SESSIONS, STEADY_ROUNDS, profile=True)
+    launches.stop("dense")
+    compare_with_plain("dense", res, COMPARE_SESSIONS)
+
+    # phase 7: sparse_naive, short
+    launches.start()
+    res = train_and_detect("sparse_naive", HDCConfig(variant="sparse_naive"),
+                           naive_records(patients, codes), calibrate=True)
+    serve_fleet("sparse_naive", res, NAIVE_SESSIONS, NAIVE_STEADY_ROUNDS,
+                profile=False)
+    launches.stop("sparse_naive")
+    compare_with_plain("sparse_naive", res, NAIVE_SESSIONS)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kc.rows[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches.total(name),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import hv
 from repro_torch.core.classifier import HDCConfig
-from repro_torch.core.im import IMParams
+from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.core.online import OnlineAMState
 from repro_torch.core.pipeline import HDCPipeline, _check_cfg
 from repro_torch.device import resolve_device
@@ -36,28 +36,47 @@ def config_from_fields(cfg_fields: Mapping) -> HDCConfig:
     return HDCConfig(**{k: v for k, v in cfg_fields.items() if k in _CFG_FIELDS})
 
 
-def pipeline_from_arrays(cfg_fields: Mapping, item_pos: np.ndarray,
-                         elec_pos: np.ndarray, *,
+def _params(cfg: HDCConfig, item: np.ndarray, elec: np.ndarray, dev):
+    """The codebooks of ``cfg.variant``: packed uint32 words for dense,
+    uint8 segment positions for the sparse variants (the naive one with its
+    packed caches, as the reference's init builds it)."""
+    if cfg.variant == "dense":
+        want = ((cfg.channels, cfg.codes, cfg.words), (cfg.channels, cfg.words))
+        dtype = np.uint32
+    else:
+        want = ((cfg.channels, cfg.codes, cfg.segments),
+                (cfg.channels, cfg.segments))
+        dtype = np.uint8
+    item = np.asarray(item, dtype)
+    elec = np.asarray(elec, dtype)
+    if (item.shape, elec.shape) != want:
+        raise ValueError(f"codebooks {item.shape}, {elec.shape} do not match "
+                         f"the config {want}")
+    if cfg.variant == "dense":
+        return DenseIMParams(item_packed=torch.from_numpy(hv.to_i32(item).copy()).to(dev),
+                             elec_packed=torch.from_numpy(hv.to_i32(elec).copy()).to(dev),
+                             dim=cfg.dim)
+    params = IMParams(item_pos=torch.from_numpy(item.copy()).to(dev),
+                      elec_pos=torch.from_numpy(elec.copy()).to(dev),
+                      dim=cfg.dim, segments=cfg.segments)
+    return params.with_packed(cfg.variant == "sparse_naive")
+
+
+def pipeline_from_arrays(cfg_fields: Mapping, item: np.ndarray,
+                         elec: np.ndarray, *,
                          class_hvs: np.ndarray | None = None,
                          am_counts: np.ndarray | None = None,
                          am_n: np.ndarray | None = None,
                          device=None) -> HDCPipeline:
-    """Rebuild a pipeline: codebook positions (uint8), class HVs (uint32
-    words, carried as int32 with the same bits) and the counter-file state,
-    placed on ``device`` (default: the card)."""
+    """Rebuild a pipeline from its codebooks (``item``, ``elec``: the
+    reference's ``item_packed``/``elec_packed`` uint32 words for dense,
+    ``item_pos``/``elec_pos`` uint8 positions for the sparse variants),
+    class HVs (uint32 words, carried as int32 with the same bits) and the
+    counter-file state, placed on ``device`` (default: the card)."""
     cfg = config_from_fields(cfg_fields)
     _check_cfg(cfg)
     dev = resolve_device(device)
-    item = np.asarray(item_pos, np.uint8)
-    elec = np.asarray(elec_pos, np.uint8)
-    want_item = (cfg.channels, cfg.codes, cfg.segments)
-    if item.shape != want_item or elec.shape != (cfg.channels, cfg.segments):
-        raise ValueError(f"codebooks {item.shape}, {elec.shape} do not match "
-                         f"the config ({want_item}, "
-                         f"{(cfg.channels, cfg.segments)})")
-    params = IMParams(item_pos=torch.from_numpy(item.copy()).to(dev),
-                      elec_pos=torch.from_numpy(elec.copy()).to(dev),
-                      dim=cfg.dim, segments=cfg.segments)
+    params = _params(cfg, item, elec, dev)
     chvs = None
     if class_hvs is not None:
         words = np.asarray(class_hvs)

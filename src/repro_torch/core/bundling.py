@@ -1,6 +1,6 @@
 """Bundling with and without thinning (port of ``repro.core.bundling``):
-the position-domain spatial bundles, temporal bundling and the density
-calibration rule."""
+the packed-domain (naive) and position-domain (CompIM) spatial bundles,
+temporal bundling and the density calibration rule."""
 
 from __future__ import annotations
 
@@ -8,6 +8,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import hv
+
+
+def spatial_counts_packed(bound: torch.Tensor, dim: int) -> torch.Tensor:
+    """Adder tree: (..., N, W) packed -> (..., D) int32 per-bit counts."""
+    return hv.unpacked_counts(bound, axis=-2, dim=dim)
+
+
+def spatial_bundle_thinned(bound: torch.Tensor, dim: int,
+                           threshold: int) -> torch.Tensor:
+    """Naive spatial bundling: adder tree + thinning threshold -> packed."""
+    return hv.threshold_pack(spatial_counts_packed(bound, dim), threshold)
+
+
+def spatial_bundle_or(bound: torch.Tensor) -> torch.Tensor:
+    """OR tree over the channels: (..., N, W) -> (..., W)."""
+    return hv.or_reduce(bound, axis=-2)
 
 
 def spatial_bundle_or_positions(pos: torch.Tensor, dim: int,

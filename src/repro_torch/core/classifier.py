@@ -1,5 +1,5 @@
-"""Sparse HDC configuration and the plain sparse datapath (port of
-``repro.core.classifier``).
+"""HDC configuration and the plain sparse datapaths, naive and CompIM
+(port of ``repro.core.classifier``).
 
 ``HDCConfig`` keeps the reference's fields and geometry validation except
 ``backend``: here the device of the tensors selects the path (CUDA kernels
@@ -83,16 +83,25 @@ def frame_view(codes: torch.Tensor, window: int) -> torch.Tensor:
 
 def spatial_encode(params: im.IMParams, codes: torch.Tensor,
                    cfg: HDCConfig) -> torch.Tensor:
-    """(..., channels) LBP codes -> (..., W) packed bundled HV (CompIM)."""
-    if cfg.variant != "sparse_compim":
-        raise ValueError(f"variant {cfg.variant!r} is not ported; the port "
-                         "runs 'sparse_compim'")
-    pos = im.im_lookup_positions(params, codes)              # (..., C, S)
-    bound = binding.bind_positions(pos, params.elec_pos, cfg.seg_len)
-    if cfg.spatial_thinning:
-        return bundling.spatial_bundle_thinned_positions(
-            bound, cfg.dim, cfg.segments, cfg.spatial_threshold)
-    return bundling.spatial_bundle_or_positions(bound, cfg.dim, cfg.segments)
+    """(..., channels) LBP codes -> (..., W) packed bundled HV."""
+    if cfg.variant == "sparse_naive":
+        data = im.im_lookup_packed(params, codes)                # (..., C, W)
+        bound = binding.bind_segmented_packed(data, params.elec_packed,
+                                              cfg.dim, cfg.segments)
+        return bundling.spatial_bundle_thinned(bound, cfg.dim,
+                                               cfg.spatial_threshold)
+    if cfg.variant == "sparse_compim":
+        pos = im.im_lookup_positions(params, codes)              # (..., C, S)
+        bound = binding.bind_positions(pos, params.elec_pos, cfg.seg_len)
+        if cfg.spatial_thinning:
+            return bundling.spatial_bundle_thinned_positions(
+                bound, cfg.dim, cfg.segments, cfg.spatial_threshold)
+        return bundling.spatial_bundle_or_positions(bound, cfg.dim,
+                                                    cfg.segments)
+    if cfg.variant == "dense":
+        raise ValueError("variant='dense' is routed by repro_torch.core."
+                         "pipeline (this module holds the sparse datapaths)")
+    raise ValueError(f"unknown sparse variant {cfg.variant!r}")
 
 
 def encode_frames(params: im.IMParams, codes: torch.Tensor,

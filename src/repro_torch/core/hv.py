@@ -128,6 +128,32 @@ def positions_to_packed(pos: torch.Tensor, dim: int,
     return seg_words.reshape(*pos.shape[:-1], segments * words_per_seg)
 
 
+def packed_to_positions(words: torch.Tensor, dim: int,
+                        segments: int) -> torch.Tensor:
+    """Inverse of ``positions_to_packed`` for HVs with exactly one bit per
+    segment: the one-hot -> binary decoder of the naive binding.  Returns
+    (..., S) uint8 positions."""
+    bits = unpack_bits(words, dim)
+    seg_len = dim // segments
+    seg = bits.reshape(*bits.shape[:-1], segments, seg_len)
+    iota = torch.arange(seg_len, dtype=torch.int32, device=words.device)
+    return (seg.to(torch.int32) * iota).sum(-1, dtype=torch.int32).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# random HV generation (design-time codebooks)
+# ---------------------------------------------------------------------------
+
+def random_dense_packed(generator: torch.Generator, shape: tuple[int, ...],
+                        dim: int) -> torch.Tensor:
+    """Random dense (p = 0.5) packed HVs: (*shape, D // 32) int32, drawn on
+    the generator's device.  ``jax.random``'s stream cannot be replayed:
+    parity with the reference transfers codebooks instead of redrawing."""
+    bits = torch.randint(0, 2, (*shape, dim), generator=generator,
+                         device=generator.device, dtype=torch.uint8)
+    return pack_bits(bits)
+
+
 # ---------------------------------------------------------------------------
 # elementwise packed ops
 # ---------------------------------------------------------------------------

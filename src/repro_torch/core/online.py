@@ -1,6 +1,6 @@
 """Counter-file view of the AM (port of ``repro.core.online``: the state,
-one-shot accumulation and re-thresholding; the gated update rules are not
-ported yet)."""
+one-shot accumulation and re-thresholding, sparse and dense; the gated
+update rules are not ported yet)."""
 
 from __future__ import annotations
 
@@ -53,9 +53,13 @@ def _density_threshold(counts: torch.Tensor, density) -> torch.Tensor:
 
 def class_hvs_from_state(state: OnlineAMState, cfg: HDCConfig,
                          density=None) -> torch.Tensor:
-    """Re-threshold the counter file: (..., C, D) -> (..., C, W) class HVs,
-    each row thinned to ``density`` (default ``cfg.class_density``)."""
+    """Re-threshold the counter file: (..., C, D) -> (..., C, W) class HVs.
+    Sparse: each row thinned to ``density`` (default ``cfg.class_density``);
+    dense: per-bit majority over the ``n`` frames bundled per class."""
     counts = torch.clamp(state.counts, min=0)
+    if cfg.variant == "dense":
+        n = torch.clamp(state.n, min=1).unsqueeze(-1)
+        return hv.majority_pack(counts, n, cfg.dim)
     if density is None:
         density = cfg.class_density
     thr = _density_threshold(counts, density)

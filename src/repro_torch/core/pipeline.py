@@ -1,14 +1,21 @@
-"""One-shot HDC pipeline for the paper's datapath (port of
-``repro.core.pipeline.HDCPipeline`` for ``variant="sparse_compim"``).
+"""One-shot HDC pipeline for the paper's three datapaths (port of
+``repro.core.pipeline.HDCPipeline``):
 
-    cfg = HDCConfig()
+* ``sparse_compim`` — CompIM position-domain binding, OR-tree (or, with
+  ``spatial_thinning``, adder-tree) spatial bundle; the paper's design;
+* ``sparse_naive``  — packed IM, one-hot decoder + barrel-shift binding,
+  adder-tree spatial bundle with thinning;
+* ``dense``         — the dense-HDC comparison system: XOR binding,
+  channel and temporal majorities, Hamming AM.
+
+    cfg = HDCConfig()                        # or HDCConfig(variant="dense")
     pipe = HDCPipeline.init(torch.Generator().manual_seed(42), cfg)
     pipe = pipe.calibrate_density(train_codes, target=0.25)
     pipe = pipe.train_one_shot(train_codes, train_labels)
     scores, preds = pipe.infer(test_codes)
 
 The pipeline lives on one device (the card unless ``device="cpu"`` is
-passed to ``init``).  Encoding runs the encoder kernel and scoring the AM
+passed to ``init``).  Encoding runs the encoder kernels and scoring the AM
 kernel on the card, their plain versions on the CPU; calibration runs the
 plain datapath, as in the reference.  Methods are pure: training and
 calibration return new pipelines.
@@ -21,30 +28,80 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch.core import am, classifier, hv, online
+from repro_torch.core import am, binding, bundling, classifier, hv, online
 from repro_torch.core import im as im_mod
 from repro_torch.core.classifier import HDCConfig
-from repro_torch.core.im import IMParams
+from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.core.online import OnlineAMState
 from repro_torch.device import resolve_device
+from repro_torch.kernels.dense_hdc.ops import dense_encode_frames_fused
 from repro_torch.kernels.hdc_am.ops import am_search
 from repro_torch.kernels.hdc_encoder.ops import encode_frames_fused
 
-VARIANTS = ("sparse_compim",)
+VARIANTS = ("sparse_naive", "sparse_compim", "dense")
 
-__all__ = ["HDCConfig", "HDCPipeline", "VARIANTS"]
+__all__ = ["HDCConfig", "HDCPipeline", "VARIANTS", "spatial_encode"]
 
 
 def _check_cfg(cfg: HDCConfig) -> None:
     if cfg.variant not in VARIANTS:
-        raise ValueError(f"variant {cfg.variant!r} is not ported; expected "
-                         f"one of {VARIANTS}")
+        raise ValueError(f"unknown variant {cfg.variant!r}; expected one of "
+                         f"{VARIANTS}")
 
+
+# ---------------------------------------------------------------------------
+# variant-routed stages
+# ---------------------------------------------------------------------------
+
+def spatial_encode(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
+    """(..., channels) LBP codes -> (..., W) packed bundled HV, any variant
+    (dense: XOR binding + per-bit channel majority)."""
+    if cfg.variant == "dense":
+        data = im_mod.im_lookup_packed(params, codes)            # (..., C, W)
+        bound = binding.bind_xor(data, params.elec_packed)
+        counts = hv.unpacked_counts(bound, axis=-2, dim=cfg.dim)
+        return hv.majority_pack(counts, cfg.channels, cfg.dim)
+    return classifier.spatial_encode(params, codes, cfg)
+
+
+def _fused_sparse_cfg(cfg: HDCConfig) -> HDCConfig:
+    """The sparse encoder kernel computes the position-domain datapath; the
+    naive bit-domain variant is bit-identical to it with spatial thinning
+    forced on at the naive threshold (binding-domain equivalence)."""
+    if cfg.variant == "sparse_naive":
+        return replace(cfg, spatial_thinning=True)
+    return cfg
+
+
+def _encode_frames(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
+    """(B, T, channels) uint8 codes -> (B, F, W) int32 frame HVs: the
+    encoder kernels for CUDA tensors.  For CPU tensors the kernels' plain
+    versions run, except for ``sparse_naive``, whose plain version is its
+    own bit-domain datapath."""
+    if cfg.variant == "dense":
+        return dense_encode_frames_fused(params, codes, cfg)
+    if cfg.variant == "sparse_naive" and codes.device.type == "cpu":
+        return classifier.encode_frames(params, codes, cfg)
+    return encode_frames_fused(params, codes, _fused_sparse_cfg(cfg))
+
+
+def _frame_counts(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
+    """Temporal accumulator counts per frame (B, F, D) int32."""
+    if cfg.variant != "dense":
+        return classifier.frame_counts(params, codes, cfg)
+    spatial = spatial_encode(params, classifier.frame_view(codes, cfg.window),
+                             cfg)
+    return bundling.temporal_counts(spatial, cfg.dim)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline object
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class HDCPipeline:
     """IM params + (optional) trained class HVs and counter-file state."""
-    params: IMParams
+    params: IMParams | DenseIMParams
     cfg: HDCConfig
     class_hvs: torch.Tensor | None = None       # (n_classes, W) int32
     am_state: OnlineAMState | None = None
@@ -52,18 +109,26 @@ class HDCPipeline:
     @classmethod
     def init(cls, generator: torch.Generator, cfg: HDCConfig,
              device=None) -> "HDCPipeline":
-        """Draw the codebooks from ``generator``; place them on ``device``
-        (default: the CUDA card, raising when there is none)."""
+        """Draw the codebooks for ``cfg.variant`` from ``generator``; place
+        them on ``device`` (default: the CUDA card, raising when there is
+        none)."""
         _check_cfg(cfg)
-        params = im_mod.make_im(generator, channels=cfg.channels,
-                                codes=cfg.codes, dim=cfg.dim,
-                                segments=cfg.segments,
-                                device=resolve_device(device))
+        dev = resolve_device(device)
+        if cfg.variant == "dense":
+            params = im_mod.make_dense_im(generator, channels=cfg.channels,
+                                          codes=cfg.codes, dim=cfg.dim,
+                                          device=dev)
+        else:
+            # only the naive bit-domain datapath reads the packed tables
+            params = im_mod.make_im(
+                generator, channels=cfg.channels, codes=cfg.codes,
+                dim=cfg.dim, segments=cfg.segments, device=dev,
+                precompute_packed=cfg.variant == "sparse_naive")
         return cls(params=params, cfg=cfg)
 
     @property
     def device(self) -> torch.device:
-        return self.params.item_pos.device
+        return self.params.device
 
     def to(self, device) -> "HDCPipeline":
         return replace(
@@ -73,21 +138,36 @@ class HDCPipeline:
 
     # -- config rewrites ----------------------------------------------------
 
-    _THRESHOLD_FIELDS = ("spatial_threshold", "temporal_threshold",
-                         "class_density")
+    # class HVs are trained through the same encoder as inference; changing
+    # any of these on a trained pipeline drops them
+    _ENCODER_FIELDS = ("variant", "spatial_thinning", "spatial_threshold",
+                       "temporal_threshold", "class_density")
+    _GEOMETRY_FIELDS = ("dim", "segments", "channels", "lbp_bits",
+                        "n_classes", "window")
 
     def with_cfg(self, **overrides) -> "HDCPipeline":
-        """Rebuild with new threshold fields; class HVs trained at the old
-        operating point are dropped when any of them changes."""
-        bad = sorted(set(overrides) - set(self._THRESHOLD_FIELDS))
-        if bad:
-            raise ValueError(f"with_cfg changes only {self._THRESHOLD_FIELDS}; "
-                             f"got {bad}")
+        """Rebuild with config overrides that keep the params (variant
+        within sparse or dense, thresholds; not the geometry).  Changing an
+        encoder field on a trained pipeline drops the class HVs."""
         new = replace(self.cfg, **overrides)
+        _check_cfg(new)
+        for field in self._GEOMETRY_FIELDS:
+            if getattr(new, field) != getattr(self.cfg, field):
+                raise ValueError(f"cannot change {field} without re-init")
+        if (new.variant == "dense") != (self.cfg.variant == "dense"):
+            raise ValueError("cannot cross the sparse/dense params boundary; "
+                             "HDCPipeline.init a new pipeline instead")
         chvs, state = self.class_hvs, self.am_state
-        if new != self.cfg:
+        if chvs is not None and any(getattr(new, f) != getattr(self.cfg, f)
+                                    for f in self._ENCODER_FIELDS):
             chvs = state = None
-        return replace(self, cfg=new, class_hvs=chvs, am_state=state)
+        params = self.params
+        naive = new.variant == "sparse_naive"
+        if new.variant != "dense" and (params.item_packed_cache is not None) != naive:
+            # the packed caches follow the naive datapath, which reads them
+            params = params.with_packed(naive)
+        return replace(self, cfg=new, class_hvs=chvs, am_state=state,
+                       params=params)
 
     # -- encode / calibrate / train / infer ---------------------------------
 
@@ -96,16 +176,19 @@ class HDCPipeline:
 
     def encode_frames(self, codes) -> torch.Tensor:
         """(B, T, channels) uint8 codes -> (B, F, W) int32 frame HVs."""
-        return encode_frames_fused(self.params, self._codes(codes), self.cfg)
+        return _encode_frames(self.params, self._codes(codes), self.cfg)
 
     def frame_counts(self, codes) -> torch.Tensor:
         """Pre-threshold temporal accumulator counts (B, F, D)."""
-        return classifier.frame_counts(self.params, self._codes(codes), self.cfg)
+        return _frame_counts(self.params, self._codes(codes), self.cfg)
 
     def calibrate_density(self, codes, target: float) -> "HDCPipeline":
         """Program the temporal threshold so post-thinning frame density
-        stays <= ``target`` on the calibration stream.  Calibrate before
-        training: a changed threshold drops trained class HVs."""
+        stays <= ``target`` on the calibration stream; nothing for the
+        dense variant (majority, no thinning).  Calibrate before training:
+        a changed threshold drops trained class HVs."""
+        if self.cfg.variant == "dense":
+            return self
         new_cfg = classifier.with_density_target(
             self.params, self._codes(codes), self.cfg, target)
         return self.with_cfg(temporal_threshold=new_cfg.temporal_threshold)
@@ -138,10 +221,12 @@ class HDCPipeline:
         return replace(self, class_hvs=chvs, am_state=state)
 
     def scores(self, frames: torch.Tensor) -> torch.Tensor:
-        """(..., W) frame HVs -> (..., n_classes) AM overlap scores."""
+        """(..., W) frame HVs -> (..., n_classes) AM scores (overlap for the
+        sparse variants, D - Hamming distance for dense)."""
         if self.class_hvs is None:
             raise ValueError("pipeline has no class HVs; call train_one_shot first")
-        return am_search(frames, self.class_hvs, mode="overlap", dim=self.cfg.dim)
+        mode = "hamming" if self.cfg.variant == "dense" else "overlap"
+        return am_search(frames, self.class_hvs, mode=mode, dim=self.cfg.dim)
 
     def infer(self, codes) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, T, channels) codes -> (scores (B, F, n_classes),

@@ -39,6 +39,7 @@ SIGNATURES = {
     "hdc_am_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     "hdc_fleet_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
+    "dense_hdc_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

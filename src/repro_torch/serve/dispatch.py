@@ -1,12 +1,15 @@
 """Multi-patient dispatch machinery for the fleet (port of
-``repro.serve.dispatch``: bank validation, pre-bound codebooks, the OR-tree
-code-domain spatial encode and owner-gathered AM scoring).
+``repro.serve.dispatch``: bank validation, pre-bound codebooks, the
+code-domain spatial encode for every variant, batched frame encoding and
+owner-gathered AM scoring).
 
 Binding is a pure function of (channel, LBP code), so the serving path
 precomputes the BOUND packed HV per (channel, code) once per patient; per
-cycle the spatial encode is a table gather + OR tree.  The per-patient
-tables stack along a leading axis and each stream gathers its rows through
-an ``owner`` index, so one launch serves any mix of patients.
+cycle the spatial encode is a table gather + OR tree (or, for spatial
+thinning, the naive variant and dense, an adder tree + threshold or
+majority).  The per-patient tables stack along a leading axis and each
+stream gathers its rows through an ``owner`` index, so one launch serves
+any mix of patients.  Channel masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Hashable, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import binding, hv
+from repro_torch.core import binding, bundling, hv
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
 
 
@@ -56,7 +59,11 @@ def validate_bank(pipelines: Mapping[Hashable, HDCPipeline]) -> HDCConfig:
 
 
 def bound_table(params, cfg: HDCConfig) -> torch.Tensor:
-    """Pre-bound codebook for one patient: (channels, codes, W) int32."""
+    """Pre-bound codebook for one patient: (channels, codes, W) int32.
+    Sparse variants bind through the position-domain identity, dense by
+    XOR."""
+    if cfg.variant == "dense":
+        return binding.bind_xor(params.item_packed, params.elec_packed[:, None])
     pos = binding.bind_positions(params.item_pos, params.elec_pos[:, None],
                                  cfg.seg_len)
     return hv.positions_to_packed(pos, cfg.dim, cfg.segments)
@@ -78,14 +85,47 @@ def stack_bound_tables(pipes: Sequence[HDCPipeline]
     return torch.stack(unique), np.asarray(rows, np.int32)
 
 
+def owner_spatial_encode(tables: torch.Tensor, owner: torch.Tensor,
+                         codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
+    """Owner-gathered spatial encode: (B, ..., channels) -> (B, ..., W).
+
+    The reference formulation: it materialises the full (B, ..., C, W)
+    bound expansion; ``owner_spatial_codes`` is held bit-exact with it."""
+    c, k = tables.shape[1:3]
+    ch = torch.arange(c, device=codes.device)
+    o = owner.to(torch.int64).reshape((-1,) + (1,) * (codes.ndim - 1))
+    ci = torch.clamp(codes.to(torch.int64), max=k - 1)
+    bound = tables[o, ch, ci]                                  # (B, ..., C, W)
+    if cfg.variant == "dense":
+        counts = hv.unpacked_counts(bound, axis=-2, dim=cfg.dim)
+        return hv.majority_pack(counts, cfg.channels, cfg.dim)
+    if cfg.variant == "sparse_naive" or cfg.spatial_thinning:
+        return bundling.spatial_bundle_thinned(bound, cfg.dim,
+                                               cfg.spatial_threshold)
+    return hv.or_reduce(bound, axis=-2)
+
+
+def spatial_block_len(t_pad: int, cfg: HDCConfig) -> int:
+    """Largest divisor of t_pad <= min(8, window): the time block of the
+    adder-tree code-domain spatial encode, which bounds its gather
+    temporary to (channels, S, block, W) words."""
+    cap = min(8, cfg.window, t_pad)
+    return max(b for b in range(1, cap + 1) if t_pad % b == 0)
+
+
 def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
                         codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
-    """Code-domain gather + OR-tree bundle: (S, T, channels) uint8 codes ->
-    (S, T, W) per-cycle packed spatial HVs (the OR branch of the
-    reference: ``sparse_compim`` without spatial thinning)."""
-    if cfg.variant != "sparse_compim" or cfg.spatial_thinning:
-        raise ValueError("only the OR-tree datapath (sparse_compim without "
-                         "spatial thinning) is ported")
+    """Code-domain gather + bundle: (S, T, channels) uint8 codes -> (S, T, W)
+    per-cycle packed spatial HVs, without the (S, T, C, W) bound expansion.
+
+    * OR tree (``sparse_compim`` without thinning): one gather per channel
+      over the whole chunk, pairwise-ORed as a tree.
+    * adder tree (thinning, ``sparse_naive``, dense majority): one gather
+      per ``spatial_block_len`` time block, the channel stack zero-padded to
+      a 32-multiple so the counts take the bit-plane adder, then threshold
+      or majority pack.
+
+    Out-of-alphabet codes clamp within their channel's rows."""
     s, t, c = codes.shape
     p, _, k, w = tables.shape
     if t == 0:
@@ -94,14 +134,48 @@ def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
     # out-of-alphabet code must clip within its channel's rows
     flat = tables.reshape(p * c * k, w)
     ci = torch.clamp(codes.to(torch.int64), max=k - 1)
-    ob = owner.to(torch.int64)[:, None] * (c * k)                 # (S, 1)
-    lvl = [flat[ob + ch * k + ci[:, :, ch]] for ch in range(c)]    # C x (S, T, W)
-    while len(lvl) > 1:
-        nxt = [a | b for a, b in zip(lvl[0::2], lvl[1::2])]
-        if len(lvl) % 2:
-            nxt.append(lvl[-1])
-        lvl = nxt
-    return lvl[0]
+    if cfg.variant == "sparse_compim" and not cfg.spatial_thinning:
+        ob = owner.to(torch.int64)[:, None] * (c * k)             # (S, 1)
+        lvl = [flat[ob + ch * k + ci[:, :, ch]] for ch in range(c)]  # C x (S, T, W)
+        while len(lvl) > 1:
+            nxt = [a | b for a, b in zip(lvl[0::2], lvl[1::2])]
+            if len(lvl) % 2:
+                nxt.append(lvl[-1])
+            lvl = nxt
+        return lvl[0]
+
+    block = spatial_block_len(t, cfg)
+    ob = owner.to(torch.int64)[None, :, None] * (c * k)           # (1, S, 1)
+    cbase = (torch.arange(c, device=codes.device) * k)[:, None, None]  # (C, 1, 1)
+    c32 = -(-c // 32) * 32
+    out = []
+    for t0 in range(0, t, block):
+        idx = ob + cbase + ci[:, t0:t0 + block].permute(2, 0, 1)  # (C, S, block)
+        bound = flat[idx]                                       # (C, S, block, W)
+        if c32 != c:  # zero rows count nothing; keeps the bit-plane route
+            bound = torch.cat([bound, bound.new_zeros((c32 - c, *bound.shape[1:]))])
+        counts = hv.unpacked_counts(bound, axis=0, dim=cfg.dim)
+        if cfg.variant == "dense":
+            out.append(hv.majority_pack(counts, cfg.channels, cfg.dim))
+        else:
+            out.append(hv.threshold_pack(counts, cfg.spatial_threshold))
+    return torch.cat(out, dim=1)
+
+
+def owner_encode_frames(tables: torch.Tensor, owner: torch.Tensor,
+                        thresholds: torch.Tensor, codes: torch.Tensor,
+                        cfg: HDCConfig) -> torch.Tensor:
+    """Batched multi-patient ``encode_frames``: (B, T, channels) ->
+    (B, F, W), with ``thresholds`` (B,) each stream's temporal threshold
+    (dense: the window majority instead)."""
+    b, t, _ = codes.shape
+    f = t // cfg.window
+    words = owner_spatial_codes(tables, owner, codes[:, : f * cfg.window], cfg)
+    spatial = words.reshape(b, f, cfg.window, cfg.words)
+    counts = bundling.temporal_counts(spatial, cfg.dim)        # (B, F, D)
+    if cfg.variant == "dense":
+        return hv.majority_pack(counts, cfg.window, cfg.dim)
+    return hv.threshold_pack(counts, thresholds.reshape(-1, 1, 1))
 
 
 def owner_am_scores(frames: torch.Tensor, class_rows: torch.Tensor,

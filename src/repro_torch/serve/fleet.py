@@ -9,10 +9,13 @@ The fleet keeps S sessions in one device-resident ``FleetState``:
 
 plus each session's class rows and its last emitted frame and scores.  One
 step advances all sessions over a padded (S, t_pad, channels) uint8 code
-batch: the fused fleet kernel gathers the pre-bound rows, OR-bundles
-them, and counts every frame slot of the step (``kernels/hdc_fleet``); the
-carried counts are added, frames are threshold-packed and scored against
-the session's class rows (plain tensor code, as in the reference).
+batch: the fused fleet kernel gathers the pre-bound rows, bundles them
+(OR tree for ``sparse_compim``; adder tree with thinning for
+``spatial_thinning`` and ``sparse_naive``; channel majority for dense) and
+counts every frame slot of the step (``kernels/hdc_fleet``); the carried
+counts are added, frames are threshold-packed (dense: majority over the
+window) and scored against the session's class rows (plain tensor code, as
+in the reference).
 
 Chunks may have any length per session (0 included).  Lengths are padded
 to the smallest bucket that fits, and a chunk longer than the largest
@@ -93,7 +96,10 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
     emits = n_emit > 0
     frame_counts = seg[:, :-1].clone()
     frame_counts[:, 0] += torch.where(emits[:, None], state.counts, 0)
-    frames = hv.threshold_pack(frame_counts, thresholds[:, None, None])
+    if cfg.variant == "dense":
+        frames = hv.majority_pack(frame_counts, cfg.window, cfg.dim)
+    else:
+        frames = hv.threshold_pack(frame_counts, thresholds[:, None, None])
     scores = dispatch.owner_am_scores(frames, state.class_rows[:, None], cfg)
     sidx = torch.arange(s, device=chunk.device)
     last_slot = torch.clamp(n_emit - 1, min=0).to(torch.int64)
@@ -115,8 +121,8 @@ class StreamingFleet:
     """S concurrent streaming seizure sessions advanced by one step.
 
     ``pipelines`` is the patient -> trained-pipeline bank (one shared
-    datapath and device; per-patient codebooks and calibrated thresholds
-    welcome).  ``owners[i]`` names the patient of session ``i``.  The fleet
+    datapath and device, any variant; per-patient codebooks and calibrated
+    thresholds welcome).  ``owners[i]`` names the patient of session ``i``.  The fleet
     runs on the bank's device: the card, or the CPU for a bank built with
     ``device="cpu"``.
     """

@@ -9,6 +9,7 @@ frame HV), fill levels and the device state must agree bit for bit.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +31,18 @@ jax.config.update("jax_platform_name", "cpu")
 DIM, SEGMENTS, WINDOW = 256, 8, 32
 
 
-def _jtrained(seed: int, channels: int, threshold: int) -> JPipeline:
+def _jit(fn, **static):
+    """A reference function compiled once with its static arguments bound:
+    the same integer operations, without the op-by-op dispatch that would
+    dominate these tests' time."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def _jtrained(seed: int, channels: int, threshold: int,
+              **cfg_kw) -> JPipeline:
     rng = np.random.default_rng(seed)
     cfg = JConfig(dim=DIM, segments=SEGMENTS, channels=channels, window=WINDOW,
-                  temporal_threshold=threshold, backend="jnp")
+                  temporal_threshold=threshold, backend="jnp", **cfg_kw)
     codes = rng.integers(0, 64, (2, 4 * WINDOW, channels), np.uint8)
     labels = rng.integers(0, 2, (2, 4), np.int32)
     labels[0, :2] = (0, 1)
@@ -42,16 +51,21 @@ def _jtrained(seed: int, channels: int, threshold: int) -> JPipeline:
 
 
 def _transfer(jp: JPipeline):
+    if jp.cfg.variant == "dense":
+        books = jp.params.item_packed, jp.params.elec_packed
+    else:
+        books = jp.params.item_pos, jp.params.elec_pos
     return convert.pipeline_from_arrays(
-        dataclasses.asdict(jp.cfg), np.asarray(jp.params.item_pos),
-        np.asarray(jp.params.elec_pos), class_hvs=np.asarray(jp.class_hvs),
+        dataclasses.asdict(jp.cfg), *map(np.asarray, books),
+        class_hvs=np.asarray(jp.class_hvs),
         am_counts=np.asarray(jp.am_state.counts),
         am_n=np.asarray(jp.am_state.n), device="cpu")
 
 
-def _banks(channels: int):
-    jbank = {"a": _jtrained(0, channels, 4), "b": _jtrained(1, channels, 6),
-             "c": _jtrained(2, channels, 5)}
+def _banks(channels: int, **cfg_kw):
+    jbank = {"a": _jtrained(0, channels, 4, **cfg_kw),
+             "b": _jtrained(1, channels, 6, **cfg_kw),
+             "c": _jtrained(2, channels, 5, **cfg_kw)}
     return jbank, {pid: _transfer(p) for pid, p in jbank.items()}
 
 
@@ -118,6 +132,69 @@ def test_bound_tables_and_spatial_codes_match_reference(channels):
         tbank["a"].cfg).shape == (5, 0, DIM // 32)
 
 
+# the adder-tree datapaths: dense majority, naive thinning, CompIM thinning
+ADDER_CFGS = [dict(variant="dense"), dict(variant="sparse_naive", spatial_threshold=2),
+              dict(spatial_thinning=True, spatial_threshold=3)]
+
+
+@pytest.mark.parametrize("cfg_kw", ADDER_CFGS, ids=["dense", "naive", "thin"])
+@pytest.mark.parametrize("channels", [7, 33])
+def test_adder_dispatch_matches_reference(cfg_kw, channels):
+    """Pre-bound tables (dense: XOR), the adder-tree code-domain encode
+    against the reference's and against the reference formulation
+    (``owner_spatial_encode``, which the thinned branch is held to
+    directly), and batched frame encoding, over a T that no block length
+    of 8 divides and out-of-alphabet codes."""
+    jbank, tbank = _banks(channels, **cfg_kw)
+    jt, _ = j_dispatch.stack_bound_tables([jbank["a"], jbank["b"]])
+    tt, _ = dispatch.stack_bound_tables([tbank["a"], tbank["b"]])
+    np.testing.assert_array_equal(hv.to_u32(tt), np.asarray(jt))
+    jcfg = j_dispatch.datapath_key(jbank["a"].cfg)
+    tcfg = dispatch.datapath_key(tbank["a"].cfg)
+    rng = np.random.default_rng(channels)
+    owner = np.asarray([0, 1, 1, 0], np.int32)
+    codes = rng.integers(0, 80, (4, 2 * WINDOW + 6, channels), np.uint8)
+    args = (torch.from_numpy(owner), torch.from_numpy(codes))
+    jargs = (jnp.asarray(owner), jnp.asarray(codes))
+    got = dispatch.owner_spatial_codes(tt, *args, tcfg)
+    np.testing.assert_array_equal(hv.to_u32(got), np.asarray(
+        _jit(j_dispatch.owner_spatial_codes, cfg=jcfg)(jt, *jargs)))
+    enc = dispatch.owner_spatial_encode(tt, *args, tcfg)
+    np.testing.assert_array_equal(hv.to_u32(enc), np.asarray(
+        _jit(j_dispatch.owner_spatial_encode, cfg=jcfg)(jt, *jargs)))
+    assert torch.equal(got, enc)
+    assert dispatch.spatial_block_len(70, tcfg) == j_dispatch.spatial_block_len(70, jcfg)
+    thr = np.asarray([4, 6, 6, 4], np.int32)
+    np.testing.assert_array_equal(
+        hv.to_u32(dispatch.owner_encode_frames(tt, args[0], torch.from_numpy(thr),
+                                               args[1], tcfg)),
+        np.asarray(_jit(j_dispatch.owner_encode_frames, cfg=jcfg)(
+            jt, jargs[0], jnp.asarray(thr), jargs[1])))
+
+
+def test_owner_spatial_encode_and_encode_frames_or_tree_match_reference():
+    jbank, tbank = _banks(6)
+    jt, _ = j_dispatch.stack_bound_tables([jbank["a"], jbank["c"]])
+    tt, _ = dispatch.stack_bound_tables([tbank["a"], tbank["c"]])
+    jcfg = j_dispatch.datapath_key(jbank["a"].cfg)
+    tcfg = dispatch.datapath_key(tbank["a"].cfg)
+    rng = np.random.default_rng(4)
+    owner = np.asarray([1, 0, 1], np.int32)
+    codes = rng.integers(0, 70, (3, 3 * WINDOW + 5, 6), np.uint8)
+    enc = dispatch.owner_spatial_encode(tt, torch.from_numpy(owner),
+                                        torch.from_numpy(codes), tcfg)
+    np.testing.assert_array_equal(
+        hv.to_u32(enc), np.asarray(_jit(j_dispatch.owner_spatial_encode, cfg=jcfg)(
+            jt, jnp.asarray(owner), jnp.asarray(codes))))
+    thr = np.asarray([5, 4, 5], np.int32)
+    np.testing.assert_array_equal(
+        hv.to_u32(dispatch.owner_encode_frames(
+            tt, torch.from_numpy(owner), torch.from_numpy(thr),
+            torch.from_numpy(codes), tcfg)),
+        np.asarray(_jit(j_dispatch.owner_encode_frames, cfg=jcfg)(
+            jt, jnp.asarray(owner), jnp.asarray(thr), jnp.asarray(codes))))
+
+
 def test_owner_am_scores_and_datapath_key_match_reference():
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 2**32, (4, 3, 8), dtype=np.uint32)
@@ -153,12 +230,8 @@ def test_validate_bank_rejects_what_reference_rejects():
 # the fleet
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("channels", [7, 8])
-def test_fleet_ragged_schedule_matches_reference(channels):
-    """Zero-length, sub-window, window-crossing and longer-than-bucket
-    chunks, with out-of-alphabet codes, over three patients with their own
-    codebooks and thresholds."""
-    jbank, tbank = _banks(channels)
+def _check_ragged_schedule(channels: int, **cfg_kw) -> None:
+    jbank, tbank = _banks(channels, **cfg_kw)
     owners = ["a", "b", "c", "b", "a", "c"]
     buckets = (8, 16, 64)
     jf = JFleet(jbank, owners, buckets=buckets, backend="jnp")
@@ -181,6 +254,22 @@ def test_fleet_ragged_schedule_matches_reference(channels):
         total += sum(len(d) for d in got)
         _assert_state_equal(tf, jf)
     assert total > 20
+
+
+@pytest.mark.parametrize("channels", [7, 8])
+def test_fleet_ragged_schedule_matches_reference(channels):
+    """Zero-length, sub-window, window-crossing and longer-than-bucket
+    chunks, with out-of-alphabet codes, over three patients with their own
+    codebooks and thresholds."""
+    _check_ragged_schedule(channels)
+
+
+@pytest.mark.parametrize("cfg_kw", ADDER_CFGS, ids=["dense", "naive", "thin"])
+def test_variant_fleet_ragged_schedule_matches_reference(cfg_kw):
+    """The same schedules through the fleet kernel's ``majority`` (dense)
+    and ``thin`` (naive, CompIM with spatial thinning) modes; dense frames
+    take the window majority and ignore the thresholds."""
+    _check_ragged_schedule(7, **cfg_kw)
 
 
 def test_fleet_push_codes_and_raw_rounds_match_reference():

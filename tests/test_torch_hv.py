@@ -140,6 +140,69 @@ def test_positions_to_packed_and_bundles(dim, segments, channels):
         words=True)
 
 
+@pytest.mark.parametrize("dim,segments,channels", ODD_GEOMETRIES + [(1024, 8, 4)])
+def test_naive_binding_matches_reference(dim, segments, channels):
+    """The one-hot decoder, the barrel shift and the packed naive binding
+    (including seg_len not a multiple of 32), and its equality with the
+    position-domain binding."""
+    rng = np.random.default_rng(dim * channels)
+    seg_len = dim // segments
+    geo = dict(dim=dim, segments=segments)
+    pos = rng.integers(0, seg_len, (2, 3, channels, segments), dtype=np.uint8)
+    elec = rng.integers(0, seg_len, (channels, segments), dtype=np.uint8)
+    data = hv.positions_to_packed(torch.from_numpy(pos), dim, segments)
+    epk = hv.positions_to_packed(torch.from_numpy(elec), dim, segments)
+    _eq(hv.packed_to_positions(data, dim, segments), pos)
+    _eq(hv.packed_to_positions(data, dim, segments),
+        _jit(j_hv.packed_to_positions, **geo)(jnp.asarray(hv.to_u32(data))))
+    bound = binding.bind_segmented_packed(data, epk, dim, segments)
+    _eq(bound, _jit(j_binding.bind_segmented_packed, **geo)(
+        jnp.asarray(hv.to_u32(data)), jnp.asarray(hv.to_u32(epk))), words=True)
+    by_pos = binding.bind_positions(torch.from_numpy(pos),
+                                    torch.from_numpy(elec), seg_len)
+    assert torch.equal(bound, hv.positions_to_packed(by_pos, dim, segments))
+    bits = rng.integers(0, 2, (4, dim), dtype=np.uint8)
+    shifts = rng.integers(0, seg_len, (4, segments), dtype=np.uint8)
+    _eq(binding.roll_segments_bits(torch.from_numpy(bits),
+                                   torch.from_numpy(shifts), segments),
+        _jit(j_binding.roll_segments_bits, segments=segments)(
+            jnp.asarray(bits), jnp.asarray(shifts)))
+
+
+@pytest.mark.parametrize("n", [5, 32, 33])
+def test_bind_xor_and_packed_bundles_match_reference(n):
+    rng = np.random.default_rng(n)
+    a, b = _words(rng, 3, n, 8), _words(rng, n, 8)
+    bound = binding.bind_xor(_t(a), _t(b))
+    jbound = j_binding.bind_xor(jnp.asarray(a), jnp.asarray(b))
+    _eq(bound, jbound, words=True)
+    _eq(bundling.spatial_counts_packed(bound, 256),
+        _jit(j_bundling.spatial_counts_packed, dim=256)(jbound))
+    for thr in (1, n // 2, n + 1):
+        _eq(bundling.spatial_bundle_thinned(bound, 256, thr),
+            _jit(j_bundling.spatial_bundle_thinned, dim=256, threshold=thr)(jbound),
+            words=True)
+    _eq(bundling.spatial_bundle_or(bound), j_bundling.spatial_bundle_or(jbound),
+        words=True)
+
+
+def test_make_dense_im_draws_valid_tables():
+    a = im.make_dense_im(torch.Generator().manual_seed(3), channels=6,
+                         codes=64, dim=1024, device="cpu")
+    b = im.make_dense_im(torch.Generator().manual_seed(3), channels=6,
+                         codes=64, dim=1024, device="cpu")
+    assert a.item_packed.shape == (6, 64, 32) and a.elec_packed.shape == (6, 32)
+    assert a.item_packed.dtype == torch.int32 and a.dim == 1024
+    assert torch.equal(a.item_packed, b.item_packed)
+    assert torch.equal(a.elec_packed, b.elec_packed)
+    # 6 * 64 * 1024 draws of p = 0.5: the density's standard deviation is
+    # about 0.0008, so 0.49-0.51 is beyond 12 of them
+    density = float(hv.popcount(a.item_packed).sum()) / (6 * 64 * 1024)
+    assert 0.49 < density < 0.51
+    assert not torch.equal(a.item_packed[0, 0], a.item_packed[0, 1])
+    assert a.to("cpu").device == torch.device("cpu")
+
+
 # ---------------------------------------------------------------------------
 # classifier / im / am / online
 # ---------------------------------------------------------------------------
@@ -252,6 +315,23 @@ def test_online_state_and_class_hvs_match_reference(density):
         words=True)
 
 
+def test_dense_class_hvs_from_state_matches_reference():
+    """Majority over the frames bundled per class, over max(n, 1) for a
+    class with none; ties (count * 2 == n) give 0."""
+    rng = np.random.default_rng(6)
+    bits = rng.integers(0, 2, (30, 256), dtype=np.uint8)
+    labels = rng.integers(0, 2, 30).astype(np.int32)
+    labels[:2] = (0, 1)
+    jstate = j_online.state_from_frames(jnp.asarray(bits), jnp.asarray(labels), 3)
+    tstate = online.state_from_frames(torch.from_numpy(bits),
+                                      torch.from_numpy(labels), 3)
+    assert int(tstate.n[2]) == 0
+    jcfg = j_classifier.HDCConfig(dim=256, n_classes=3, variant="dense")
+    tcfg = classifier.HDCConfig(dim=256, n_classes=3, variant="dense")
+    _eq(online.class_hvs_from_state(tstate, tcfg),
+        j_online.class_hvs_from_state(jstate, jcfg), words=True)
+
+
 def test_im_lookup_clamps_out_of_alphabet_codes_like_reference():
     jcfg = j_classifier.HDCConfig(dim=256, channels=5)
     jparams, tparams = _params(jcfg, 256)
@@ -259,6 +339,16 @@ def test_im_lookup_clamps_out_of_alphabet_codes_like_reference():
     codes[0, 0] = (63, 64, 65, 200, 255)
     _eq(im.im_lookup_positions(tparams, torch.from_numpy(codes)),
         j_im.im_lookup_positions(jparams, jnp.asarray(codes)))
+    jnaive = j_im.make_im(jax.random.PRNGKey(8), channels=5, codes=64,
+                          dim=256, segments=8)
+    tnaive = im.IMParams(torch.from_numpy(np.asarray(jnaive.item_pos).copy()),
+                         torch.from_numpy(np.asarray(jnaive.elec_pos).copy()),
+                         256, 8).with_packed(True)
+    _eq(tnaive.item_packed, jnaive.item_packed, words=True)
+    _eq(tnaive.elec_packed, jnaive.elec_packed, words=True)
+    _eq(im.im_lookup_packed(tnaive, torch.from_numpy(codes)),
+        j_im.im_lookup_packed(jnaive, jnp.asarray(codes)),
+        words=True)
 
 
 def test_make_im_draws_valid_codebooks_from_generator():

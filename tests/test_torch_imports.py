@@ -25,6 +25,7 @@ import repro_torch
 from repro_torch import convert, device
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
 from repro_torch.kernels import build
+from repro_torch.kernels.dense_hdc.ops import dense_encoder
 from repro_torch.kernels.hdc_am.ops import am_search
 from repro_torch.kernels.hdc_encoder.ops import encoder
 from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
@@ -97,13 +98,17 @@ def test_wrappers_dispatch_on_tensor_device_only():
     """CPU tensors take the plain version without counting a launch;
     tensors on another device are refused, never moved."""
     before = (lbp_codes.launches, encoder.launches, am_search.launches,
-              fleet_counts_kernel.launches)
+              fleet_counts_kernel.launches, dense_encoder.launches)
     x = torch.zeros(1, 10, 3)
     assert lbp_codes(x).shape == (1, 4, 3)
     q = torch.zeros(2, 8, dtype=torch.int32)
     assert am_search(q, q, mode="overlap", dim=256).shape == (2, 2)
+    codes = torch.zeros(3, 32, 4, dtype=torch.uint8)
+    table = torch.zeros(4, 64, 8, dtype=torch.int32)
+    assert dense_encoder(codes, table, table[:, 0], window=32,
+                         dim=256).shape == (3, 8)
     assert (lbp_codes.launches, encoder.launches, am_search.launches,
-            fleet_counts_kernel.launches) == before
+            fleet_counts_kernel.launches, dense_encoder.launches) == before
     with pytest.raises(ValueError, match="unsupported devices"):
         lbp_codes(x.to("meta"))
     with pytest.raises(ValueError, match="unsupported devices"):
@@ -112,3 +117,5 @@ def test_wrappers_dispatch_on_tensor_device_only():
     with pytest.raises(ValueError, match="unsupported devices"):
         encoder(pos.to("meta"), torch.zeros(3, 8, dtype=torch.uint8),
                 window=32, segments=8, seg_len=32, temporal_threshold=1)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        dense_encoder(codes.to("meta"), table, table[:, 0], window=32, dim=256)

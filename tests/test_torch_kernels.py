@@ -1,4 +1,4 @@
-"""The four ported kernels' plain versions (what each wrapper runs for CPU
+"""The five ported kernels' plain versions (what each wrapper runs for CPU
 tensors) held against the JAX package's Pallas kernels in interpret mode
 and their ``ref.py`` oracles, on the same numpy inputs.
 
@@ -19,6 +19,10 @@ import torch
 from repro.core import hv as j_hv
 from repro.core.classifier import HDCConfig as JConfig
 from repro.core import classifier as j_classifier
+from repro.core.im import DenseIMParams as JDenseIMParams
+from repro.kernels.dense_hdc.kernel import dense_encoder_pallas
+from repro.kernels.dense_hdc.ops import dense_encode_frames_fused as j_dense_fused
+from repro.kernels.dense_hdc.ref import dense_encoder_ref as j_dense_ref
 from repro.kernels.hdc_am.kernel import am_search_pallas
 from repro.kernels.hdc_am.ref import am_search_ref as j_am_ref
 from repro.kernels.hdc_encoder.kernel import encoder_pallas
@@ -32,7 +36,8 @@ from repro.kernels.lbp.ref import lbp_ref as j_lbp_ref
 from repro.serve import dispatch as j_dispatch
 from repro_torch.core import hv
 from repro_torch.core.classifier import HDCConfig
-from repro_torch.core.im import IMParams
+from repro_torch.core.im import DenseIMParams, IMParams
+from repro_torch.kernels.dense_hdc import ops as dense_ops
 from repro_torch.kernels.hdc_am import ops as am_ops
 from repro_torch.kernels.hdc_encoder import ops as enc_ops
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
@@ -145,6 +150,77 @@ def test_am_leading_dims_and_bad_mode():
     assert out.shape == (3, 5, 2)
     with pytest.raises(ValueError):
         am_ops.am_search(_t(q), _t(cls), mode="cosine", dim=256)
+
+
+# ---------------------------------------------------------------------------
+# dense_hdc
+# ---------------------------------------------------------------------------
+
+def _dense_operands(rng, lead, window, c, k, w):
+    """Frame-viewed codes (some out of the alphabet), the (C, K, W) table,
+    the electrode HVs, and the item HVs the reference gathers from them
+    (out-of-alphabet codes clamp within their channel)."""
+    codes = rng.integers(0, k + 8, (*lead, window, c), dtype=np.uint8)
+    table, elec = _words(rng, c, k, w), _words(rng, c, w)
+    item_hvs = table[np.arange(c), np.minimum(codes, k - 1)]
+    return codes, table, elec, item_hvs
+
+
+def _dense_plain(codes, table, elec, window, w):
+    out = dense_ops.dense_encoder(torch.from_numpy(codes), _t(table), _t(elec),
+                                  window=window, dim=w * 32)
+    return hv.to_u32(out)
+
+
+@pytest.mark.parametrize("lead,window,c,k,w", [
+    ((2, 3), 32, 5, 64, 8),
+    ((1, 2), 16, 64, 64, 4),      # paper-shaped channels: channel ties
+    ((3,), 48, 7, 5, 3),          # odd W and channels, tiny alphabet
+])
+def test_dense_plain_matches_pallas_and_ref(lead, window, c, k, w):
+    """Windows that are multiples of 16, where the Pallas kernel's 16-cycle
+    chunk loop covers every cycle."""
+    rng = np.random.default_rng(window + c)
+    codes, table, elec, item_hvs = _dense_operands(rng, lead, window, c, k, w)
+    got = _dense_plain(codes, table, elec, window, w)
+    kw = dict(window=window, dim=w * 32)
+    np.testing.assert_array_equal(
+        got, np.asarray(_jit(j_dense_ref, **kw)(jnp.asarray(item_hvs),
+                                                jnp.asarray(elec))))
+    hvs5 = item_hvs if len(lead) == 2 else item_hvs[None]   # (B, F, ...)
+    want = _jit(dense_encoder_pallas, interpret=True, **kw)(
+        jnp.asarray(hvs5), jnp.asarray(elec))
+    np.testing.assert_array_equal(got, np.asarray(want).reshape(got.shape))
+
+
+@pytest.mark.parametrize("window,c,w", [(40, 7, 3), (24, 6, 8), (33, 64, 2),
+                                        (1, 5, 1)])
+def test_dense_plain_matches_ref_at_every_window(window, c, w):
+    """Every cycle of the window counts, also where window % 16 != 0 (the
+    Pallas kernel drops those tail cycles; the reference's function is
+    ``dense_encoder_ref``)."""
+    rng = np.random.default_rng(window * c)
+    codes, table, elec, item_hvs = _dense_operands(rng, (2, 2), window, c, 64, w)
+    got = _dense_plain(codes, table, elec, window, w)
+    want = _jit(j_dense_ref, window=window, dim=w * 32)(jnp.asarray(item_hvs),
+                                                        jnp.asarray(elec))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("window,use_kernel", [(32, True), (32, False),
+                                               (40, False)])
+def test_dense_encode_frames_fused_matches_reference_wrapper(window, use_kernel):
+    kw = dict(dim=256, channels=6, window=window, variant="dense")
+    jcfg, tcfg = JConfig(**kw), HDCConfig(**kw)
+    rng = np.random.default_rng(window)
+    table, elec = _words(rng, 6, 64, 8), _words(rng, 6, 8)
+    jparams = JDenseIMParams(jnp.asarray(table), jnp.asarray(elec), 256)
+    tparams = DenseIMParams(_t(table), _t(elec), 256)
+    codes = rng.integers(0, 70, (2, 3 * window + 7, 6), dtype=np.uint8)
+    got = dense_ops.dense_encode_frames_fused(tparams, torch.from_numpy(codes), tcfg)
+    want = j_dense_fused(jparams, jnp.asarray(codes), jcfg, use_kernel=use_kernel)
+    np.testing.assert_array_equal(hv.to_u32(got), np.asarray(want))
+    assert dense_ops.dense_encoder.launches == 0   # CPU tensors never launch
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ other stage is integer or bit arithmetic.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -43,9 +44,12 @@ def _transfer(jp: JPipeline, device="cpu") -> HDCPipeline:
         kw = dict(class_hvs=np.asarray(jp.class_hvs),
                   am_counts=np.asarray(jp.am_state.counts),
                   am_n=np.asarray(jp.am_state.n))
+    if jp.cfg.variant == "dense":
+        books = jp.params.item_packed, jp.params.elec_packed
+    else:
+        books = jp.params.item_pos, jp.params.elec_pos
     return convert.pipeline_from_arrays(
-        dataclasses.asdict(jp.cfg), np.asarray(jp.params.item_pos),
-        np.asarray(jp.params.elec_pos), device=device, **kw)
+        dataclasses.asdict(jp.cfg), *map(np.asarray, books), device=device, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -102,13 +106,11 @@ def test_metrics_copy_matches_reference(k, m):
 # the offline chain
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("channels,window,thinning", [(6, 32, False),
-                                                      (7, 64, False),
-                                                      (6, 32, True)])
-def test_pipeline_chain_matches_reference(channels, window, thinning):
-    cfg_kw = dict(dim=256, segments=8, channels=channels, window=window,
-                  spatial_thinning=thinning, spatial_threshold=2)
-    recs = _records(j_ieeg, channels, channels)
+def _check_chain(cfg_kw: dict, n_records: int = 3) -> None:
+    """Calibrate, frame counts, one-shot training, encode, scores,
+    predictions and detection metrics against the reference's jnp path."""
+    channels, window = cfg_kw["channels"], cfg_kw["window"]
+    recs = _records(j_ieeg, channels, channels, n=n_records)
     train = recs[0]
     codes = train.codes[None]
     labels = j_ieeg.frame_labels(train, window)[None]
@@ -146,6 +148,69 @@ def test_pipeline_chain_matches_reference(channels, window, thinning):
                     np.asarray(jpred[i]), onset)), nan_ok=True))
 
 
+@pytest.mark.parametrize("channels,window,thinning", [(6, 32, False),
+                                                      (7, 64, False),
+                                                      (6, 32, True)])
+def test_pipeline_chain_matches_reference(channels, window, thinning):
+    _check_chain(dict(dim=256, segments=8, channels=channels, window=window,
+                      spatial_thinning=thinning, spatial_threshold=2))
+
+
+@pytest.mark.parametrize("variant,channels,window", [
+    ("dense", 6, 32), ("dense", 7, 40), ("sparse_naive", 5, 32),
+    ("sparse_naive", 6, 40)])
+def test_variant_chain_matches_reference(variant, channels, window):
+    """The dense and naive datapaths, at a window that is a multiple of 16
+    and at one that is not (window 40)."""
+    _check_chain(dict(dim=256, segments=8, channels=channels, window=window,
+                      variant=variant, spatial_threshold=2),
+                 n_records=3 if variant == "dense" else 2)
+
+
+def _trained_pair(variant: str):
+    cfg = JConfig(dim=256, segments=8, channels=4, window=32,
+                  temporal_threshold=7, variant=variant)
+    rng = np.random.default_rng(2)
+    codes = rng.integers(0, 64, (1, 4 * 32, 4), dtype=np.uint8)
+    labels = np.asarray([[0, 1, 0, 1]])
+    jp = JPipeline.init(jax.random.PRNGKey(5), cfg).train_one_shot(
+        jnp.asarray(codes), jnp.asarray(labels))
+    return jp, _transfer(jp)
+
+
+@pytest.mark.parametrize("variant", ["sparse_compim", "sparse_naive", "dense"])
+def test_with_cfg_variant_rules_match_reference(variant):
+    """Crossing sparse/dense and changing the geometry raise; an encoder
+    field drops the class HVs; the packed caches follow sparse_naive."""
+    jp, tp = _trained_pair(variant)
+    sparse = ("sparse_compim", "sparse_naive")
+    overrides = [dict(temporal_threshold=7), dict(temporal_threshold=8),
+                 dict(class_density=0.3), dict(spatial_threshold=3),
+                 dict(variant="dense"), dict(window=64), dict(channels=5),
+                 dict(variant="bogus")] + [dict(variant=v) for v in sparse]
+    for ov in overrides:
+        try:
+            jnew = jp.with_cfg(**ov)
+        except ValueError as exc:
+            with pytest.raises(ValueError, match=re.escape(str(exc)[:20])):
+                tp.with_cfg(**ov)
+            continue
+        tnew = tp.with_cfg(**ov)
+        assert dataclasses.replace(jnew.cfg, backend="jnp") == JConfig(
+            **dataclasses.asdict(tnew.cfg), backend="jnp"), ov
+        assert (tnew.class_hvs is None) == (jnew.class_hvs is None), ov
+        assert (tnew.am_state is None) == (jnew.am_state is None), ov
+        if variant != "dense":
+            assert ((tnew.params.item_packed_cache is None)
+                    == (jnew.params.item_packed_cache is None)), ov
+            assert ((tnew.params.elec_packed_cache is None)
+                    == (jnew.params.elec_packed_cache is None)), ov
+            if tnew.params.item_packed_cache is not None:
+                np.testing.assert_array_equal(
+                    hv.to_u32(tnew.params.item_packed_cache),
+                    np.asarray(jnew.params.item_packed_cache))
+
+
 def test_transferred_trained_pipeline_scores_like_reference():
     """A trained reference pipeline carried across whole (class HVs and
     counter file) infers identically."""
@@ -177,8 +242,9 @@ def test_pipeline_guards():
     assert trained.with_cfg(temporal_threshold=7).class_hvs is None
     with pytest.raises(ValueError):
         trained.with_cfg(dim=512)
-    with pytest.raises(ValueError, match="not ported"):
-        HDCPipeline.init(torch.Generator(), HDCConfig(variant="dense"), device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        HDCPipeline.init(torch.Generator(), HDCConfig(variant="sparse_bogus"),
+                         device="cpu")
 
 
 def test_convert_checks_fields_and_shapes():
