@@ -9,9 +9,13 @@ Phases (one line each, any failure exits non-zero):
    (``lbp``, ``hdc_encoder``, ``hdc_am``, ``hdc_fleet``, ``dense_hdc``) with
    ``nvcc`` for ``sm_90a``;
 3. every kernel against its plain PyTorch version on the card, at the
-   paths' shapes and one small odd shape (exact equality: all integer or
-   bit arithmetic), with CUDA-event times and the card's least time for
-   the same work;
+   paths' shapes and one small odd shape, and for the two kernels with
+   bit-sliced channel counters (``hdc_fleet``, ``dense_hdc``) wide shapes
+   of 200 and 300 channels (8 and 15 counter planes) and a 256-code
+   alphabet (narrowed table slabs) (exact equality: all integer or bit
+   arithmetic), with CUDA-event times and the card's least
+   time for the same work; the fleet kernel is timed in each of its three
+   modes at the main shape;
 4. the main path (``sparse_compim``) at the paper's geometry: raw iEEG ->
    LBP codes on the card for 16 synthetic patients, per-patient
    calibration + one-shot training, detection on the held-out seizures,
@@ -182,6 +186,7 @@ class KernelCheck:
             f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
             f"{n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop)")
         expect(equal, f"{name} {case}: kernel differs from its plain version")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_kernels(shapes: dict) -> KernelCheck:
@@ -233,12 +238,24 @@ def check_kernels(shapes: dict) -> KernelCheck:
                        n_bytes=(b + c) * w * 4 + b * c * 4, n_ops=b * c * w * 3,
                        main=case == "main" and mode == "overlap", reps=20)
 
-    # hdc_fleet: tables (P, C, K, W), codes (S, T32, C) -> (S, K1, D)
+    # Bounds of the two bit-sliced kernels count one operation per
+    # (cycle, channel, word): a word operation on bit-sliced counter planes
+    # advances the counts of 32 bit positions at once, so a per-bit count
+    # (64 operations per word, as the first designs were counted) is no
+    # lower bound.
+
+    # hdc_fleet: tables (P, C, K, W), codes (S, T32, C) -> (S, K1, D); the
+    # other cases are ragged (random fill levels, lengths 0 to t)
+    modes = {}
     for case, (p, s, t, c, k, w, window) in (("main", shapes["fleet"]),
-                                            ("odd", (3, 5, 96, 33, 8, 5, 32))):
+                                            ("odd", (3, 5, 96, 33, 8, 5, 32)),
+                                            ("wide", (3, 6, 96, 200, 16, 4, 32)),
+                                            ("wider", (2, 5, 64, 300, 8, 2, 32)),
+                                            ("k256", (2, 5, 64, 20, 256, 32, 32))):
         tables = _rand_words(g, p, c, k, w)
         owner = torch.randint(0, p, (s,), generator=g, dtype=torch.int32).cuda()
-        codes = torch.randint(0, k + 4, (s, t, c), generator=g, dtype=torch.uint8).cuda()
+        codes = torch.randint(0, min(k + 4, 256), (s, t, c), generator=g,
+                              dtype=torch.uint8).cuda()
         if case == "main":  # a steady round: every session streams t cycles
             filled = torch.zeros(s, dtype=torch.int32).cuda()
             lengths = torch.full((s,), t, dtype=torch.int32).cuda()
@@ -249,28 +266,37 @@ def check_kernels(shapes: dict) -> KernelCheck:
         tm = fl_ref.emission_masks(filled, lengths, t_pad=t, window=window)
         mask = (torch.rand(s, c, generator=g) > 0.25).to(torch.int32).cuda()
         k1, d = tm.shape[1], w * 32
-        for mode, thr in (("or", 0), ("thin", 3), ("majority", 0)):
+        thin_thr = 3 if c < 100 else c // 3
+        for mode, thr in (("or", 0), ("thin", thin_thr), ("majority", 0)):
             for cm in (None, mask):
                 kw = dict(mode=mode, dim=d, threshold=thr, chan_mask=cm)
                 n_bytes = (codes.numel() + tables.numel() * 4 + tm.numel() * 4
                            + s * 4 + s * k1 * d * 4 + (0 if cm is None else s * c * 4))
-                per_word = 1 if mode == "or" else 64
-                n_ops = s * t * c * w * per_word + s * k1 * t * w * 3
-                kc.compare("hdc_fleet",
-                           f"{case} S={s} T={t} {mode} masked={cm is not None}",
-                           fl_ops.fleet_counts_kernel,
-                           lambda: fl_ops.fleet_counts_kernel(tables, owner, codes, tm, **kw),
-                           lambda: fl_ref.fleet_counts_plain(tables, owner, codes, tm, **kw),
-                           n_bytes=n_bytes, n_ops=n_ops,
-                           main=case == "main" and mode == "or" and cm is None,
-                           reps=10, plain_reps=2)
+                n_ops = s * t * c * w + s * k1 * t * w * 3
+                r = kc.compare("hdc_fleet",
+                               f"{case} C={c} S={s} T={t} {mode} masked={cm is not None}",
+                               fl_ops.fleet_counts_kernel,
+                               lambda: fl_ops.fleet_counts_kernel(tables, owner, codes, tm, **kw),
+                               lambda: fl_ref.fleet_counts_plain(tables, owner, codes, tm, **kw),
+                               n_bytes=n_bytes, n_ops=n_ops,
+                               main=case == "main" and mode == "or" and cm is None,
+                               reps=10, plain_reps=2)
+                if case == "main" and cm is None:
+                    modes[mode] = r
+    kc.rows["hdc_fleet"]["modes"] = modes
+    log("[kernel] hdc_fleet modes at the main shape: " + "; ".join(
+        f"{m} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}; "
+        f"plain {r['plain_ms']:.4f} ms)" for m, r in modes.items()))
 
     # dense_hdc: codes (N, window, C) uint8, table (C, K, W) -> (N, W); the
-    # odd case has a window that is no multiple of 16, odd C and W, and
-    # out-of-alphabet codes
+    # other cases have windows that are no multiple of 16 (or of 32), odd C
+    # and W, and out-of-alphabet codes
     for case, (n, win, c, k, w) in (("main", shapes["dense"]),
-                                    ("odd", (6, 40, 7, 64, 3))):
-        codes = torch.randint(0, k + 8 if case == "odd" else k, (n, win, c),
+                                    ("odd", (6, 40, 7, 64, 3)),
+                                    ("wide", (5, 72, 200, 64, 3)),
+                                    ("wider", (3, 40, 300, 16, 2)),
+                                    ("k256", (3, 40, 20, 256, 32))):
+        codes = torch.randint(0, k if case == "main" else min(k + 8, 256), (n, win, c),
                               generator=g, dtype=torch.uint8).cuda()
         table, elec = _rand_words(g, c, k, w), _rand_words(g, c, w)
         d = w * 32
@@ -280,7 +306,7 @@ def check_kernels(shapes: dict) -> KernelCheck:
                    lambda: dense_ops.dense_encoder(codes, table, elec, **kw),
                    lambda: dense_ref.dense_encoder_plain(codes, table, elec, **kw),
                    n_bytes=codes.numel() + (table.numel() + elec.numel() + n * w) * 4,
-                   n_ops=n * win * c * d, main=case == "main", reps=10,
+                   n_ops=n * win * w * (c + 1), main=case == "main", reps=10,
                    plain_reps=2)
     return kc
 
@@ -625,7 +651,8 @@ def main() -> int:
                      "replaces": replaces, "launches": launches.total(name),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     **({"modes": r["modes"]} if "modes" in r else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

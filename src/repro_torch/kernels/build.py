@@ -37,8 +37,8 @@ SIGNATURES = {
     "lbp_codes_launch": [_P, _P, _L, _L, _L, _I, _P],
     "hdc_encoder_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "hdc_am_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
-    "hdc_fleet_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
+    "hdc_fleet_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
     "dense_hdc_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
 }
 

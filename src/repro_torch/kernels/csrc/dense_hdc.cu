@@ -13,74 +13,249 @@
 // Shapes: codes (N, window, C) uint8, item (C, K, W) uint32, elec (C, W)
 // uint32 -> out (N, W) uint32.
 //
-// Bound on this card: operations.  One add per (frame, cycle, channel, bit)
-// is 8 G at the main path's shape, against a few MB of codes, table and
-// frames; the gathered (N, window, C, W) operand of the TPU kernel (1 GB
-// there) never exists: the (C, K, W) table (512 KiB) stays in L2.
-// Design (the simple first version): one block per (frame, group of eight
-// words), eight warps, warp v owning word w = 8 * blockIdx.y + v and lane b
-// owning bit b of it.  The frame's codes are staged, clamped, in shared
-// memory a tile of cycles at a time; per (cycle, channel) the warp reads one
-// table word (a broadcast load; the channel loop is unrolled so that several
-// are in flight), XORs the electrode word and each lane adds its bit to a
-// channel counter; the channel majority adds into the lane's
-// temporal counter, and one __ballot_sync per word packs the frame.  A
-// bit-sliced carry-save adder over the channels would do the per-bit count
-// for all 32 lanes' bits in a few word operations per channel.
+// Bound on this card: operations.  The least work is one word operation per
+// (frame, cycle, channel, word) -- on bit-sliced counter planes one word
+// operation advances the counts of 32 bit positions -- and one per (frame,
+// cycle, word) for the temporal count: 0.25 G at the main path's shape (477
+// frames x 256 cycles, C = 64, W = 32), 0.0038 ms at 67 T/s, against 8.4 MB
+// of codes, table and frames (0.0025 ms).  The gathered (N, window, C, W)
+// operand of the TPU kernel (1 GB there) never exists: the (C, K, W) table
+// (512 KiB) stays in L2.
+//
+// Design.  A block takes one frame and one tile of up to 32 words and walks
+// the window in passes of RC x 16 cycles.
+// * Staged slabs.  A pass sweeps the channels an octet at a time: the
+//   octet's slab of the table (8 channels x 64 codes x 32 words, 64 KiB,
+//   contiguous) comes into shared memory by TMA bulk copies completing on
+//   an mbarrier, double-buffered, so the table crosses from L2 once per
+//   128 cycles (0.5 GB at the main shape, against 1 GB of 128 B row
+//   gathers).  Each step issues the next step's slab, across passes; the
+//   next pass's codes come by cp.async a pass ahead and are clamped to
+//   K - 1 once, in place.
+// * Bit-sliced counters.  A warp carries RC cycles; a half-warp takes every
+//   other cycle and each lane two adjacent words, read with one 64-bit load
+//   a (cycle, channel) (codes broadcast from shared memory).  Per octet the
+//   lane loads its electrode words, XORs them in and adds the words to the
+//   cycle's counters (bitslice.cuh: a carry-save tree, 3 operations a word
+//   at 8 planes); one top-down compare, cnt >= C / 2 + 1, gives the spatial
+//   word.
+// * Temporal majority.  The pass's spatial words go to shared memory; a
+//   warp per word transposes 32 cycles (warp_transpose32: five shuffle
+//   stages) and lane b adds __popc of plane b into the word's per-bit
+//   count.  Cycles past the window are zero words, so a window that is no
+//   multiple of 32 needs no other mask.
+// Planes: 8 (RC = 8) up to C = 255, 15 (RC = 4) up to C = 16384.  Where
+// shared memory runs out the word tile narrows (K up to 256 codes are
+// staged; slabs that are not one contiguous range are copied word by word
+// with cp.async) and then the warps a block takes: any window, any W, C up
+// to 16384.
 #include "common.cuh"
+#include "bitslice.cuh"
 
-#define DENSE_TILE_BYTES 16384
-#define DENSE_WARPS 8
+#define DENSE_MAX_WARPS 16
+#define DENSE_MAX_C 16384
+#define DENSE_SP 33  // spatial words a cycle in shared memory: 32 + 1 against bank conflicts
 
-__global__ void dense_hdc_kernel(const uint8_t* __restrict__ codes,
-                                 const uint32_t* __restrict__ item,
-                                 const uint32_t* __restrict__ elec,
-                                 uint32_t* __restrict__ out, int window, int C,
-                                 int K, int W, int tile_t) {
-  __shared__ uint8_t sc[DENSE_TILE_BYTES];
-  const long long frame = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int w = blockIdx.y * DENSE_WARPS + (threadIdx.x >> 5);
-  const bool active = w < W;  // uniform over the warp
-  const uint8_t* fc = codes + frame * (long long)window * C;
+// shared words before the slabs: two slab mbarriers, per-bit temporal
+// counts of the tile's 32
+// words, the pass's spatial words; a multiple of four, so the slabs are
+// 16-byte aligned.  Two passes' codes follow the two slabs.
+__host__ __device__ static inline size_t dense_head_words(int rows) {
+  return ((size_t)4 + 32 * 32 + (size_t)rows * DENSE_SP + 3) & ~(size_t)3;
+}
 
-  int tcount = 0;
-  for (int t0 = 0; t0 < window; t0 += tile_t) {
-    const int nt = min(tile_t, window - t0);
-    __syncthreads();  // every warp has finished the previous tile
-    for (int i = threadIdx.x; i < nt * C; i += blockDim.x) {
-      const int v = fc[(long long)t0 * C + i];
-      sc[i] = (uint8_t)(v < K ? v : K - 1);
-    }
-    __syncthreads();
-    if (active) {
-      for (int t = 0; t < nt; ++t) {
-        const uint8_t* row = sc + t * C;
-        int cnt = 0;
-#pragma unroll 8
-        for (int c = 0; c < C; ++c) {
-          const unsigned word = __ldg(item + ((long long)c * K + row[c]) * W + w) ^
-                                __ldg(elec + (long long)c * W + w);
-          cnt += (int)((word >> lane) & 1u);
-        }
-        tcount += (2 * cnt > C);
+template <int NP, int RC>
+__global__ void __launch_bounds__(DENSE_MAX_WARPS * 32, 1)
+dense_hdc_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__ item,
+                 const uint32_t* __restrict__ elec, uint32_t* __restrict__ out,
+                 int window, int C, int K, int W, int C8, int wn, int flat,
+                 int codes16, uint32_t kmax4) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int rows = nwarps * RC;  // cycles a pass
+  const int Kc = K < 256 ? K : 256;
+  const int ws = wn + (wn & 1);  // slab row stride, even
+  const size_t slab = slab_words(K, ws);
+  uint64_t* bars = (uint64_t*)sm;                         // 2 slab mbarriers
+  int* tcnt = (int*)(sm + 4);                             // 32 words x 32 bits
+  uint32_t* sp = sm + 4 + 32 * 32;                        // rows x DENSE_SP
+  uint32_t* slabs = sm + dense_head_words(rows);          // 2 x slab
+  uint8_t* ctile = (uint8_t*)(slabs + 2 * slab);          // 2 x rows x C8
+
+  const long long n = blockIdx.x;
+  // Warp v carries RC cycles from r0; half-warp h (lane = 16 h + p) takes
+  // cycles r0 + h, r0 + h + 2, ... and words w0 + 2p, w0 + 2p + 1.
+  constexpr int RL = RC / 2;  // cycles a lane carries
+  const int h = lane >> 4, pw = 2 * (lane & 15);
+  const int w0 = blockIdx.y * wn, wcount = min(wn, W - w0);
+  const bool wa = pw < wcount, wb = pw + 1 < wcount;
+  const uint8_t* fc = codes + n * window * C;
+  for (int i = tid; i < 32 * 32; i += nt) tcnt[i] = 0;
+  for (int i = tid; i < 2 * rows * C8; i += nt) ctile[i] = 0;  // pad bytes stay 0
+  if (tid == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    mbar_init_fence();
+  }
+  __syncthreads();  // before any copy lands there
+  const int thr = C / 2 + 1;                                // 2 cnt > C
+  const int nocts = C8 / 8;
+  const int r0 = warp * RC;
+
+  // the codes of the pass from cycle t into buffer bf, a pass ahead: in
+  // 16-byte cp.async pieces where the rows allow (clamped in place once
+  // they are in: clamp_pass), else byte by byte, clamped
+  auto stage_pass = [&](int t, int bf) {
+    const int m = min(rows, window - t) * C;
+    const uint8_t* src = fc + (long long)t * C;
+    uint8_t* dst = ctile + bf * rows * C8;
+    if (codes16) {
+      for (int i = tid; i < m / 16; i += nt) cp_async16(dst + 16 * i, src + 16 * i);
+    } else {
+      for (int i = tid; i < m; i += nt) {
+        const int r = i / C, c = i - r * C;
+        const int v = src[i];
+        dst[r * C8 + c] = (uint8_t)(v < K ? v : K - 1);
       }
     }
+  };
+  auto clamp_pass = [&](int bf) {
+    if (!codes16 || kmax4 == 0xffffffffu) return;
+    uint32_t* ct = (uint32_t*)(ctile + bf * rows * C8);
+    for (int i = tid; i < rows * C8 / 4; i += nt) ct[i] = __vminu4(ct[i], kmax4);
+  };
+  // The steps (pass, octet) form one pipeline: each step issues the next
+  // step's slab, across passes, so the first slab of a pass is in flight
+  // during the previous temporal stage.
+  int bf = 0;        // the slab buffer of the current step
+  unsigned ph = 0u;  // bit b: the parity of slab buffer b's next completion
+  stage_pass(0, 0);
+  stage_slab(slabs, item, 0, C, K, W, Kc, w0, wn, ws, flat, bars);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  clamp_pass(0);
+  for (int t0 = 0, pass = 0; t0 < window; t0 += rows, ++pass) {
+    const int nr = min(rows, window - t0);
+    const int pb = pass & 1;
+    const uint8_t* crow = ctile + (pb * rows + r0 + h) * C8;
+    const bool last_pass = t0 + rows >= window;
+    if (!last_pass) stage_pass(t0 + rows, pb ^ 1);  // committed with the first step
+
+    BitCounter<NP> cnt[RL][2];
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      cnt[i][0].clear();
+      cnt[i][1].clear();
+    }
+    for (int oc = 0; oc < nocts; ++oc) {
+      if (oc + 1 < nocts || !last_pass)
+        stage_slab(slabs + (bf ^ 1) * slab, item, oc + 1 < nocts ? 8 * (oc + 1) : 0, C, K,
+                   W, Kc, w0, wn, ws, flat, bars + (bf ^ 1));
+      cp_async_commit();
+      cp_async_wait<1>();
+      if (flat) {
+        mbar_wait(bars + bf, (ph >> bf) & 1u);
+        ph ^= 1u << bf;
+      }
+      __syncthreads();  // the slab of this step (and the pass's codes) are in
+      if (r0 < nr && wa) {  // r0 < nr is uniform over the warp
+        const uint32_t* sl = slabs + bf * slab + pw;
+        const int c8 = 8 * oc;
+        uint32_t e0[8], e1[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const uint32_t* ec = elec + (long long)(c8 + q) * W + w0 + pw;
+          e0[q] = c8 + q < C ? __ldg(ec) : 0u;
+          e1[q] = c8 + q < C && wb ? __ldg(ec + 1) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < RL; ++i) {
+          const uint2 cc = *(const uint2*)(crow + 2 * i * C8 + c8);
+          uint32_t x0[8], x1[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const uint32_t code = ((q < 4 ? cc.x : cc.y) >> (8 * (q & 3))) & 0xffu;
+            uint2 v = make_uint2(0u, 0u);
+            if (c8 + q < C) v = *(const uint2*)(sl + (q * Kc + code) * ws);
+            x0[q] = c8 + q < C ? v.x ^ e0[q] : 0u;
+            x1[q] = c8 + q < C ? v.y ^ e1[q] : 0u;
+          }
+          cnt[i][0].add8(x0);
+          cnt[i][1].add8(x1);
+        }
+      }
+      __syncthreads();  // every warp is done with the slab before it is refilled
+      bf ^= 1;
+    }
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int r = r0 + 2 * i + h;
+      sp[r * DENSE_SP + pw] = r < nr && wa ? cnt[i][0].at_least(thr) : 0u;
+      sp[r * DENSE_SP + pw + 1] = r < nr && wb ? cnt[i][1].at_least(thr) : 0u;
+    }
+    cp_async_wait<0>();  // the next pass's codes
+    __syncthreads();
+    if (!last_pass) clamp_pass(pb ^ 1);  // read after the next pass's first barrier
+
+    for (int ww = warp; ww < wcount; ww += nwarps) {  // uniform over the warp
+      int add = 0;
+      for (int ch = 0; ch < nr; ch += 32) {
+        const uint32_t v = ch + lane < rows ? sp[(ch + lane) * DENSE_SP + ww] : 0u;
+        add += __popc(warp_transpose32(v, lane));
+      }
+      tcnt[ww * 32 + lane] += add;
+    }
   }
-  const unsigned packed = __ballot_sync(0xffffffffu, 2 * tcount > window);
-  if (active && lane == 0) out[frame * W + w] = packed;
+  __syncthreads();
+
+  for (int ww = warp; ww < wcount; ww += nwarps) {
+    const unsigned packed = __ballot_sync(0xffffffffu, 2 * tcnt[ww * 32 + lane] > window);
+    if (lane == 0) out[n * W + w0 + ww] = packed;
+  }
+}
+
+template <int NP, int RC>
+static int dense_launch(const void* codes, const void* item, const void* elec, void* out,
+                        long long n_frames, int window, int C, int K, int W,
+                        cudaStream_t stream) {
+  const int C8 = (C + 7) & ~7;
+  // the widest word tile, then the most warps, that fit in shared memory
+  size_t smem = 0;
+  int warps = 0, wn = W < 32 ? W : 32;
+  for (; wn >= 1; wn = wn > 1 ? (wn + 1) / 2 : 0) {
+    for (int v = DENSE_MAX_WARPS; v >= 1; --v) {
+      smem = (dense_head_words(v * RC) + 2 * slab_words(K, wn + (wn & 1))) * 4 +
+             (size_t)2 * v * RC * C8;
+      if (smem <= HDC_MAX_SMEM) {
+        warps = v;
+        break;
+      }
+    }
+    if (warps) break;
+  }
+  if (!warps) return (int)cudaErrorInvalidValue;
+  const int flat = wn == W && W % 2 == 0 && K <= 256 && (K * W) % 4 == 0 &&
+                   ((uintptr_t)item & 15) == 0;
+  const int codes16 = C % 16 == 0 && ((uintptr_t)codes & 15) == 0;
+  cudaError_t err = hdc_set_smem(dense_hdc_kernel<NP, RC>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)n_frames, (unsigned)((W + wn - 1) / wn));
+  dense_hdc_kernel<NP, RC><<<grid, warps * 32, smem, stream>>>(
+      (const uint8_t*)codes, (const uint32_t*)item, (const uint32_t*)elec,
+      (uint32_t*)out, window, C, K, W, C8, wn, flat, codes16, codes_kmax4(K));
+  return (int)cudaGetLastError();
 }
 
 HDC_EXPORT int dense_hdc_launch(const void* codes, const void* item,
                                 const void* elec, void* out, long long n_frames,
                                 int window, int C, int K, int W, void* stream) {
   if (n_frames <= 0) return 0;
-  if (C <= 0 || C > DENSE_TILE_BYTES || K <= 0 || W <= 0 || window <= 0)
+  if (C <= 0 || C > DENSE_MAX_C || K <= 0 || W <= 0 || window <= 0)
     return (int)cudaErrorInvalidValue;
-  const int tile_t = window < DENSE_TILE_BYTES / C ? window : DENSE_TILE_BYTES / C;
-  const dim3 grid((unsigned)n_frames, (unsigned)((W + DENSE_WARPS - 1) / DENSE_WARPS));
-  dense_hdc_kernel<<<grid, DENSE_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const uint32_t*)item, (const uint32_t*)elec,
-      (uint32_t*)out, window, C, K, W, tile_t);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bitslice_planes(C) == 8)
+    return dense_launch<8, 8>(codes, item, elec, out, n_frames, window, C, K, W, st);
+  return dense_launch<15, 4>(codes, item, elec, out, n_frames, window, C, K, W, st);
 }

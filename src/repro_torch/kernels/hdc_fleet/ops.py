@@ -69,9 +69,11 @@ def fleet_counts_kernel(tables: torch.Tensor, owner: torch.Tensor,
     out = torch.empty((s, k1, dim), dtype=torch.int32, device=codes.device)
     if out.numel() == 0:
         return out
+    # the sessions in owner order, so that a block's sessions share a bank
+    order = torch.argsort(torch.clamp(owner, 0, p - 1), stable=True).to(torch.int32)
     err = build.lib().hdc_fleet_launch(
-        tables.data_ptr(), owner.data_ptr(), codes.data_ptr(), tm.data_ptr(),
-        cm_ptr, out.data_ptr(), s, t32, c, k, w, k1, p, MODES[mode],
+        tables.data_ptr(), owner.data_ptr(), order.data_ptr(), codes.data_ptr(),
+        tm.data_ptr(), cm_ptr, out.data_ptr(), s, t32, c, k, w, k1, p, MODES[mode],
         int(threshold), build.stream_ptr(codes))
     build.check(err, "hdc_fleet")
     fleet_counts_kernel.launches += 1

@@ -38,6 +38,7 @@ from repro_torch.core import hv
 from repro_torch.core.classifier import HDCConfig
 from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.kernels.dense_hdc import ops as dense_ops
+from repro_torch.kernels.dense_hdc import ref as dense_ref
 from repro_torch.kernels.hdc_am import ops as am_ops
 from repro_torch.kernels.hdc_encoder import ops as enc_ops
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
@@ -312,3 +313,183 @@ def test_bit_transpose_matches_ballot_order():
     np.testing.assert_array_equal(planes, want)
     np.testing.assert_array_equal(planes,
                                   np.asarray(jax.jit(j_hv.bit_transpose32)(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_warp_transpose_matches_bit_transpose32(seed):
+    """The kernels' five-stage shuffle transpose (common.cuh
+    warp_transpose32), simulated over 32 lanes, gives lane b the word whose
+    bit j is bit b of lane j: hv.bit_transpose32's order."""
+    rng = np.random.default_rng(seed)
+    v = _words(rng, 32)
+    lane = np.arange(32)
+    for i, m in enumerate([0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333,
+                           0x55555555]):
+        s, m = 16 >> i, np.uint32(m)
+        t = v[lane ^ s]                                    # __shfl_xor_sync
+        v = np.where(lane & s, (v & ~m) | ((t & ~m) >> np.uint32(s)),
+                     (v & m) | ((t & m) << np.uint32(s))).astype(np.uint32)
+    want = hv.to_u32(hv.bit_transpose32(_t(_words(np.random.default_rng(seed), 32, 1))))
+    np.testing.assert_array_equal(v, want[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# bit-sliced channel counters (csrc/bitslice.cuh), mirrored in numpy
+# ---------------------------------------------------------------------------
+
+_ONES = np.uint32(0xFFFFFFFF)
+_BS_CHANNELS = [1, 2, 3, 7, 8, 9, 16, 31, 32, 33, 63, 64, 65, 100, 127, 128,
+                200, 255, 256, 257, 300]
+
+
+def _bs_planes(c: int) -> int:
+    """The plane count the launchers pick (bitslice_planes)."""
+    return 8 if c <= 255 else 15
+
+
+def _bs_count(words: np.ndarray, n_planes: int) -> list:
+    """Channel words (C, ...) uint32 -> bit planes, as the kernels add them:
+    per octet of channels (zero words pad the last) a carry-save tree of
+    seven full adders into planes 0-2, then the weight-8 carry rippled up
+    from plane 3 (BitCounter::add8)."""
+    c = words.shape[0]
+    x = np.zeros((-(-c // 8) * 8,) + words.shape[1:], np.uint32)
+    x[:c] = words
+    p = [np.zeros(words.shape[1:], np.uint32) for _ in range(n_planes)]
+
+    def fa(s, a, b):  # sum, carry
+        return s ^ a ^ b, (s & a) | (s & b) | (a & b)
+
+    for o in range(0, x.shape[0], 8):
+        q = x[o:o + 8]
+        p[0], a1 = fa(p[0], q[0], q[1])
+        p[0], b1 = fa(p[0], q[2], q[3])
+        p[0], c1 = fa(p[0], q[4], q[5])
+        p[0], d1 = fa(p[0], q[6], q[7])
+        p[1], a2 = fa(p[1], a1, b1)
+        p[1], b2 = fa(p[1], c1, d1)
+        p[2], v = fa(p[2], a2, b2)
+        for i in range(3, n_planes):
+            p[i], v = p[i] ^ v, p[i] & v
+        assert not v.any()  # the top carry is always 0
+    return p
+
+
+def _bs_at_least(p: list, thr: int) -> np.ndarray:
+    """Bits whose count >= thr, top plane down (BitCounter::at_least)."""
+    if thr <= 0:
+        return np.full_like(p[0], _ONES)
+    if thr >= 1 << len(p):
+        return np.zeros_like(p[0])
+    gt, eq = np.zeros_like(p[0]), np.full_like(p[0], _ONES)
+    for i in reversed(range(len(p))):
+        t = _ONES if (thr >> i) & 1 else np.uint32(0)
+        gt |= eq & p[i] & ~t
+        eq &= ~(p[i] ^ t)
+    return gt | eq
+
+
+def _bs_decode(p: list) -> np.ndarray:
+    """Planes (...,) -> per-bit counts (..., 32)."""
+    bit = np.arange(32, dtype=np.uint32)
+    return sum(((pl[..., None] >> bit) & 1).astype(np.int64) << i
+               for i, pl in enumerate(p))
+
+
+def _per_bit_counts(words: np.ndarray) -> np.ndarray:
+    """(C, ...) uint32 -> (..., 32) counts of each bit over C."""
+    bit = np.arange(32, dtype=np.uint32)
+    return ((words[..., None] >> bit) & 1).sum(0, dtype=np.int64)
+
+
+def _bs_fleet_threshold(mode: str, thr: int, live: int, c: int,
+                        masked: bool) -> int:
+    """The kernel's per-session threshold: thin renormalises under a mask
+    to max(1, ceil(thr * live / C)); majority is 2 cnt > n, i.e.
+    cnt >= n // 2 + 1."""
+    if mode == "thin":
+        return max(1, (thr * live + c - 1) // c) if masked else thr
+    return (live if masked else c) // 2 + 1
+
+
+@pytest.mark.parametrize("c", _BS_CHANNELS)
+@pytest.mark.parametrize("mode,mask_kind", [
+    ("thin", None), ("thin", "dead"), ("thin", "live"), ("thin", "random"),
+    ("majority", None), ("majority", "dead"), ("majority", "random")])
+def test_bitsliced_counter_matches_fleet_plain(c, mode, mask_kind):
+    """The fleet kernel's bit-sliced add, compare and per-session
+    thresholds against ``fleet_counts_plain``: slot k of the plain version
+    counts cycle k alone, so it returns every cycle's spatial bits."""
+    rng = np.random.default_rng(1000 + c)
+    p, s, k, w = 2, 3, 5, 2
+    tables = _words(rng, p, c, k, w)
+    tables[1, :, 0] = _ONES        # all channels on for code 0 of bank 1:
+    owner = np.array([1, 0, 7], np.int32)  # out of range clamps to 1
+    codes = rng.integers(0, k + 3, (s, 32, c), dtype=np.uint8)
+    codes[0, :4] = 0               # ... so cycles 0-3 of session 0 count C
+    tm = (np.uint64(1) << np.arange(32, dtype=np.uint64)).astype(np.uint32)
+    tm = np.broadcast_to(tm[None, :, None], (s, 32, 1)).copy()
+    mask = {None: None, "dead": np.zeros((s, c), np.int32),
+            "live": np.ones((s, c), np.int32),
+            "random": (rng.random((s, c)) < 0.5).astype(np.int32)}[mask_kind]
+    ones = np.ones((s, c), np.int64) if mask is None else mask
+    bound = tables[np.clip(owner, 0, p - 1)[:, None, None], np.arange(c),
+                   np.minimum(codes, k - 1)]                  # (S, 32, C, W)
+    bound = (bound * ones[:, None, :, None].astype(np.uint32)).astype(np.uint32)
+    live = ones.sum(1)
+    thresholds = [0, 1, c // 2, c, c + 1] if mode == "thin" else [0]
+    for thr in thresholds:
+        want = fleet_ref.fleet_counts_plain(
+            _t(tables), torch.from_numpy(owner), torch.from_numpy(codes),
+            _t(tm), mode=mode, dim=32 * w, threshold=thr,
+            chan_mask=None if mask is None else torch.from_numpy(mask))
+        want = want.numpy().reshape(s, 32, w, 32)             # bit of each cycle
+        for si in range(s):
+            planes = _bs_count(np.moveaxis(bound[si], 1, 0), _bs_planes(c))
+            np.testing.assert_array_equal(
+                _bs_decode(planes), _per_bit_counts(np.moveaxis(bound[si], 1, 0)))
+            t_s = _bs_fleet_threshold(mode, thr, int(live[si]), c, mask is not None)
+            got = _bs_at_least(planes, t_s)                   # (32, W)
+            bits = (got[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+            np.testing.assert_array_equal(bits, want[si], err_msg=f"thr={thr}")
+        if mask_kind == "dead":
+            assert not want.any()      # live = 0 keeps no bit
+        if mask is None and mode == "thin" and thr == c:
+            assert want[0, :4].all()   # every channel on: count == C
+
+
+@pytest.mark.parametrize("c", _BS_CHANNELS)
+@pytest.mark.parametrize("window", [1, 2, 40, 64])
+def test_bitsliced_counter_matches_dense_plain(c, window):
+    """The dense kernel's channel counter and strict majority (cnt >=
+    C // 2 + 1), then its temporal count (a popcount per 32-cycle chunk,
+    zero cycles past the window), against ``dense_encoder_plain``.  At
+    window 1 the frame is the cycle's spatial word; frame 0 forces an exact
+    channel tie, and even windows give temporal ties."""
+    rng = np.random.default_rng(2000 + c)
+    n, k, w = 3, 6, 2
+    codes = rng.integers(0, k + 2, (n, window, c), dtype=np.uint8)
+    table, elec = _words(rng, c, k, w), _words(rng, c, w)
+    codes[0] = 0
+    table[:, 0] = 0
+    table[:c // 2, 0] = _ONES ^ elec[:c // 2]   # bound: half the channels on
+    bound = table[np.arange(c), np.minimum(codes, k - 1)] ^ elec  # (N, win, C, W)
+    frames = np.zeros((n, w), np.uint32)
+    ties = 0
+    for f in range(n):
+        planes = _bs_count(np.moveaxis(bound[f], 1, 0), _bs_planes(c))  # (win, W)
+        counts = _bs_decode(planes)
+        np.testing.assert_array_equal(counts,
+                                      _per_bit_counts(np.moveaxis(bound[f], 1, 0)))
+        ties += int((2 * counts == c).sum())
+        spatial = _bs_at_least(planes, c // 2 + 1)
+        pad = np.zeros((-(-window // 32) * 32, w), np.uint32)
+        pad[:window] = spatial
+        tcount = sum(_per_bit_counts(pad[j:j + 32]) for j in range(0, len(pad), 32))
+        frames[f] = ((2 * tcount > window).astype(np.uint64)
+                     << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    if c % 2 == 0:
+        assert ties > 0
+    want = dense_ref.dense_encoder_plain(torch.from_numpy(codes), _t(table),
+                                         _t(elec), window=window, dim=32 * w)
+    np.testing.assert_array_equal(frames, hv.to_u32(want))
