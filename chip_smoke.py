@@ -12,10 +12,16 @@ Phases (one line each, any failure exits non-zero):
    paths' shapes and one small odd shape, and for the two kernels with
    bit-sliced channel counters (``hdc_fleet``, ``dense_hdc``) wide shapes
    of 200 and 300 channels (8 and 15 counter planes) and a 256-code
-   alphabet (narrowed table slabs) (exact equality: all integer or bit
-   arithmetic), with CUDA-event times and the card's least
-   time for the same work; the fleet kernel is timed in each of its three
-   modes at the main shape;
+   alphabet (narrowed table slabs); for ``hdc_encoder`` each of its paths
+   (both modes at the main shape, S = 7, seg_len 48, D = 2048, windows 40
+   and 48, spatial thresholds 0, 1, 2, 3, 5, C and C + 1, out-of-alphabet
+   codes, a table too large for shared memory) and for ``lbp`` 7 and 65
+   channels (exact equality: all integer or bit arithmetic), with
+   CUDA-event times (as the host issues the calls; beside it the device
+   time, the calls queued behind a device-side sleep so that the host's
+   launch cost is left out) and the card's least time for the same work;
+   the fleet and encoder kernels are timed in each mode at the main shape
+   (the encoder's thinning at spatial thresholds 2 and 5);
 4. the main path (``sparse_compim``) at the paper's geometry: raw iEEG ->
    LBP codes on the card for 16 synthetic patients, per-patient
    calibration + one-shot training, detection on the held-out seizures,
@@ -32,10 +38,11 @@ Phases (one line each, any failure exits non-zero):
    thinning forced on) and a 64-session fleet (``thin`` mode), all held
    against the CPU's bit-domain plain path.
 
-Each path's kernel launches are counted from zero just before it and read
-just after.  The line before the last is a JSON object with every kernel's
-launches over the paths, times and bound; the last line is the device
-summary.
+Each path's offline chain (calibration, training, inference) runs under
+the profiler, which reports its device-busy time by kernel.  Each path's
+kernel launches are counted from zero just before it and read just after.
+The line before the last is a JSON object with every kernel's launches
+over the paths, times and bound; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ NAIVE_STEADY_ROUNDS = 2
 # 32-bit rate outside the tensor cores, used for the integer/bit operations
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# cycles a second that size a device-side sleep (at least the card's clock)
+SLEEP_HZ = 2.0e9
 
 KERNELS = {
     "lbp": ("src/repro_torch/kernels/csrc/lbp.cu",
@@ -103,12 +112,24 @@ def expect(cond: bool, what: str) -> None:
         raise Failed(what)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` calls between CUDA events.
+
+    By default the calls run as the host issues them: the larger of the
+    host's and the device's time per call.  ``queued``: the calls wait
+    behind a device-side sleep longer than the host takes to issue them, so
+    they run back to back and the time is the device's alone (a wrapper's
+    Python checks and ``ctypes`` call are not counted)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(1.0, 2 * reps * host_s + 1e-3) * SLEEP_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -178,15 +199,18 @@ class KernelCheck:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         k_ms = cuda_ms(kernel, reps)
+        dev_ms = cuda_ms(kernel, reps, queued=True)
         p_ms = cuda_ms(plain, plain_reps, warmup=1)
+        r = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "device_ms": dev_ms}
         if main:
-            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            row.update(r)
         log(f"[kernel] {name:12s} {case:40s} equal={equal} "
             f"launches={wrapper.launches - before} kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
-            f"{n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop)")
+            f"(device {dev_ms:.4f} ms) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by}: {n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop)")
         expect(equal, f"{name} {case}: kernel differs from its plain version")
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+        return r
 
 
 def check_kernels(shapes: dict) -> KernelCheck:
@@ -200,7 +224,8 @@ def check_kernels(shapes: dict) -> KernelCheck:
     kc = KernelCheck()
 
     # lbp: (B, T, C) f32 -> (B, T - 6, C) uint8
-    for case, (b, t, c) in (("main", shapes["lbp"]), ("odd", (3, 101, 7))):
+    for case, (b, t, c) in (("main", shapes["lbp"]), ("odd", (3, 101, 7)),
+                            ("c65", (2, 333, 65))):
         x = torch.randn(b, t, c, generator=g).cuda()
         x[0, 5, 0] = float("nan")
         t_out = t - 6
@@ -209,24 +234,53 @@ def check_kernels(shapes: dict) -> KernelCheck:
                    n_bytes=b * t * c * 4 + b * t_out * c,
                    n_ops=b * t_out * c * 6 * 2, main=case == "main")
 
-    # hdc_encoder: positions (B, F, window, C, S) uint8 -> (B, F, W)
-    for case, (b, f, win, c, s, seg_len) in (("main", shapes["encoder"]),
-                                            ("odd", (1, 2, 48, 5, 7, 32))):
-        for thin in (False, True):
-            pos = torch.randint(0, seg_len, (b, f, win, c, s), generator=g,
-                                dtype=torch.uint8).cuda()
-            elec = torch.randint(0, seg_len, (c, s), generator=g,
-                                 dtype=torch.uint8).cuda()
-            kw = dict(window=win, segments=s, seg_len=seg_len,
-                      temporal_threshold=max(1, win // 5),
-                      spatial_thinning=thin, spatial_threshold=2)
-            d = s * seg_len
-            kc.compare("hdc_encoder", f"{case} pos{(b, f, win, c, s)} thin={thin}",
-                       enc_ops.encoder, lambda: enc_ops.encoder(pos, elec, **kw),
-                       lambda: enc_ref.encoder_ref(pos, elec, **kw),
-                       n_bytes=pos.numel() + elec.numel() + b * f * d // 8,
-                       n_ops=pos.numel() * 4 + b * f * d,
-                       main=case == "main" and not thin, reps=5, plain_reps=2)
+    # hdc_encoder: codes (B, F, window, C) uint8, CompIM table (C, K, S) and
+    # electrode positions (C, S) -> (B, F, W); the kernel gathers itself.
+    # The cases cover each of its paths: 8 segments a table load (S = 8) or
+    # one (S = 7), one plane (OR), two (thinning at 2) or more (thresholds 3,
+    # 5, C), every spatial bit on or off (thresholds 0, C + 1), seg_len 48
+    # (segments across words), D = 2048, windows 40 and 48 (a masked tail
+    # group), out-of-alphabet codes, and a table too large for shared memory
+    # (C = 300, K = 256).  Bound: the codes, the table and the frames once;
+    # one bind per (frame, cycle, channel, segment) and one word operation
+    # per (frame, cycle, word).
+    modes = {}
+    for case, (b, f, win, c, s, seg_len, k, thin, thr) in (
+            ("main", (*shapes["encoder"], 64, False, 2)),
+            ("main", (*shapes["encoder"], 64, True, 2)),
+            ("main", (*shapes["encoder"], 64, True, 5)),
+            ("odd", (1, 2, 48, 5, 7, 32, 64, False, 1)),
+            ("odd", (1, 2, 48, 5, 7, 32, 64, True, 2)),
+            ("odd", (1, 2, 48, 5, 7, 32, 64, True, 3)),
+            ("w40", (2, 3, 40, 64, 8, 128, 64, True, 5)),
+            ("seg48", (2, 3, 40, 20, 8, 48, 16, True, 1)),
+            ("d2048", (1, 3, 64, 33, 8, 256, 64, False, 1)),
+            ("thr0", (1, 2, 48, 9, 8, 128, 64, True, 0)),
+            ("thrC", (1, 2, 48, 9, 8, 128, 64, True, 9)),
+            ("thrC1", (1, 2, 48, 9, 8, 128, 64, True, 10)),
+            ("c300", (1, 2, 40, 300, 8, 64, 256, False, 1)),
+            ("c300", (1, 2, 40, 300, 8, 64, 256, True, 2)),
+            ("c300", (1, 2, 40, 300, 8, 64, 256, True, 150))):
+        main = case == "main"
+        codes = torch.randint(0, k if main else min(k + 8, 256), (b, f, win, c),
+                              generator=g, dtype=torch.uint8).cuda()
+        item = torch.randint(0, seg_len, (c, k, s), generator=g, dtype=torch.uint8).cuda()
+        elec = torch.randint(0, seg_len, (c, s), generator=g, dtype=torch.uint8).cuda()
+        kw = dict(window=win, segments=s, seg_len=seg_len,
+                  temporal_threshold=max(1, win // 5),
+                  spatial_thinning=thin, spatial_threshold=thr)
+        d = s * seg_len
+        r = kc.compare("hdc_encoder",
+                       f"{case} codes{(b, f, win, c)} S={s} L={seg_len} K={k} "
+                       f"thin={thin} thr={thr}", enc_ops.encoder,
+                       lambda: enc_ops.encoder(codes, item, elec, **kw),
+                       lambda: enc_ref.encoder_plain(codes, item, elec, **kw),
+                       n_bytes=codes.numel() + item.numel() + elec.numel() + b * f * d // 8,
+                       n_ops=codes.numel() * s + b * f * win * d // 32,
+                       main=main and not thin, reps=10 if main else 5, plain_reps=2)
+        if main:
+            modes[f"thin_thr{thr}" if thin else "or"] = r
+    kc.rows["hdc_encoder"]["modes"] = modes
 
     # hdc_am: (B, W) x (C, W) -> (B, C)
     for case, (b, c, w) in (("main", shapes["am"]), ("odd", (7, 5, 3))):
@@ -353,10 +407,35 @@ def lbp_on_card(patients, bits: int) -> list[torch.Tensor]:
     return out
 
 
+def device_busy(prof) -> tuple[float, dict]:
+    """Device-side time (ms) of a profiled window, and its entries (us) by
+    name.  An operator's own entry repeats the device time of the kernels
+    it launched, so only device-side events count."""
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0}
+    return sum(dev_us.values()) / 1e3, dev_us
+
+
 def train_and_detect(tag: str, cfg, records, calibrate: bool) -> dict:
     """Per patient: init from a CUDA generator, optional calibration, one-shot
     training on record 0 and inference on the others.  ``records`` is a list
-    of (pid, codes (R, T, C) on the card, labels (R, F), onset frames (R,))."""
+    of (pid, codes (R, T, C) on the card, labels (R, F), onset frames (R,)).
+    The whole offline chain runs under the profiler: its device-busy time
+    and each kernel's share are logged."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = _train_and_detect(tag, cfg, records, calibrate)
+        torch.cuda.synchronize()
+    busy, dev_us = device_busy(prof)
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{tag}] offline chain (profiled): device busy {busy:.3f} ms over "
+        f"{len(records)} patients; "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    return res
+
+
+def _train_and_detect(tag: str, cfg, records, calibrate: bool) -> dict:
     from repro_torch.core import metrics
     from repro_torch.core.pipeline import HDCPipeline
 
@@ -452,12 +531,7 @@ def serve_fleet(tag: str, res: dict, sessions: int, steady_rounds: int,
             t0 = time.perf_counter()
             add(fleet.push(chunks))
             wall = time.perf_counter() - t0
-        # device-side events only (kernels, copies): an operator's own entry
-        # repeats the device time of the kernels it launched
-        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0}
-        busy = sum(dev_us.values()) / 1e3
+        busy, dev_us = device_busy(prof)
         idle = (f"{100 * (1 - busy / (wall * 1e3)):.1f}% idle in this round, "
                 f"{100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled median round"
                 if dev_us else "idle share not measured")
@@ -652,6 +726,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
+                     "device_ms": r["device_ms"],
                      **({"modes": r["modes"]} if "modes" in r else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the fused sparse-HDC encoder kernel (the
+"""Plain PyTorch versions of the fused sparse-HDC encoder kernel (the
 unfused core datapath)."""
 
 from __future__ import annotations
@@ -6,14 +6,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binding, bundling
+from repro_torch.core.im import IMParams, im_lookup_positions
 
 
 def encoder_ref(positions: torch.Tensor, elec: torch.Tensor, *, window: int,
                 segments: int, seg_len: int, temporal_threshold: int,
                 spatial_thinning: bool = False,
                 spatial_threshold: int = 1) -> torch.Tensor:
-    """positions (B, F, window, C, S) uint8, elec (C, S) uint8 ->
-    (B, F, D // 32) int32 packed frame HVs."""
+    """positions (..., window, C, S) uint8, elec (C, S) uint8 ->
+    (..., D // 32) int32 packed frame HVs (port of the reference's
+    ``encoder_ref``)."""
     dim = segments * seg_len
     bound = binding.bind_positions(positions, elec, seg_len)
     if spatial_thinning:
@@ -22,3 +24,20 @@ def encoder_ref(positions: torch.Tensor, elec: torch.Tensor, *, window: int,
     else:
         spat = bundling.spatial_bundle_or_positions(bound, dim, segments)
     return bundling.temporal_bundle(spat, dim, temporal_threshold)
+
+
+def encoder_plain(codes: torch.Tensor, item_pos: torch.Tensor,
+                  elec: torch.Tensor, *, window: int, segments: int,
+                  seg_len: int, temporal_threshold: int,
+                  spatial_thinning: bool = False,
+                  spatial_threshold: int = 1) -> torch.Tensor:
+    """The kernel's function on its own operands: codes (..., window, C)
+    uint8, item_pos (C, K, S) uint8, elec (C, S) uint8 -> (..., D // 32)
+    int32.  The CompIM gather (out-of-alphabet codes clamp to K - 1), then
+    ``encoder_ref``."""
+    params = IMParams(item_pos, elec, segments * seg_len, segments)
+    return encoder_ref(im_lookup_positions(params, codes), elec, window=window,
+                       segments=segments, seg_len=seg_len,
+                       temporal_threshold=temporal_threshold,
+                       spatial_thinning=spatial_thinning,
+                       spatial_threshold=spatial_threshold)

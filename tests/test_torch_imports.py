@@ -107,15 +107,17 @@ def test_wrappers_dispatch_on_tensor_device_only():
     table = torch.zeros(4, 64, 8, dtype=torch.int32)
     assert dense_encoder(codes, table, table[:, 0], window=32,
                          dim=256).shape == (3, 8)
+    item_pos = torch.zeros(4, 64, 8, dtype=torch.uint8)
+    assert encoder(codes, item_pos, item_pos[:, 0], window=32, segments=8,
+                   seg_len=32, temporal_threshold=1).shape == (3, 8)
     assert (lbp_codes.launches, encoder.launches, am_search.launches,
             fleet_counts_kernel.launches, dense_encoder.launches) == before
     with pytest.raises(ValueError, match="unsupported devices"):
         lbp_codes(x.to("meta"))
     with pytest.raises(ValueError, match="unsupported devices"):
         am_search(q, q.to("meta"), mode="overlap", dim=256)
-    pos = torch.zeros(1, 1, 32, 3, 8, dtype=torch.uint8)
     with pytest.raises(ValueError, match="unsupported devices"):
-        encoder(pos.to("meta"), torch.zeros(3, 8, dtype=torch.uint8),
-                window=32, segments=8, seg_len=32, temporal_threshold=1)
+        encoder(codes.to("meta"), item_pos, item_pos[:, 0], window=32,
+                segments=8, seg_len=32, temporal_threshold=1)
     with pytest.raises(ValueError, match="unsupported devices"):
         dense_encoder(codes.to("meta"), table, table[:, 0], window=32, dim=256)

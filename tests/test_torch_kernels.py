@@ -20,6 +20,7 @@ from repro.core import hv as j_hv
 from repro.core.classifier import HDCConfig as JConfig
 from repro.core import classifier as j_classifier
 from repro.core.im import DenseIMParams as JDenseIMParams
+from repro.core.im import IMParams as JIMParams
 from repro.kernels.dense_hdc.kernel import dense_encoder_pallas
 from repro.kernels.dense_hdc.ops import dense_encode_frames_fused as j_dense_fused
 from repro.kernels.dense_hdc.ref import dense_encoder_ref as j_dense_ref
@@ -90,6 +91,23 @@ def test_lbp_rejects_short_streams():
 # hdc_encoder
 # ---------------------------------------------------------------------------
 
+def _compim_operands(rng, lead, window, c, k, segments, seg_len):
+    """Frame-viewed codes (some at and past K - 1), a CompIM table, the
+    electrode positions, and the positions the reference gathers from them
+    (out-of-alphabet codes clamp to K - 1)."""
+    codes = rng.integers(0, min(k + 8, 256), (*lead, window, c), dtype=np.uint8)
+    codes.reshape(-1, c)[0] = k - 1
+    item = rng.integers(0, seg_len, (c, k, segments), dtype=np.uint8)
+    elec = rng.integers(0, seg_len, (c, segments), dtype=np.uint8)
+    pos = item[np.arange(c), np.minimum(codes, k - 1)]
+    return codes, item, elec, pos
+
+
+def _enc_plain(codes, item, elec, **kw):
+    return hv.to_u32(enc_ops.encoder(torch.from_numpy(codes), torch.from_numpy(item),
+                                     torch.from_numpy(elec), **kw))
+
+
 @pytest.mark.parametrize("b,f,window,c,segments,seg_len,thinning,thr_s", [
     (2, 2, 64, 6, 8, 32, True, 2),
     (1, 2, 32, 5, 7, 32, False, 1),
@@ -97,19 +115,22 @@ def test_lbp_rejects_short_streams():
 ])
 def test_encoder_plain_matches_pallas_and_ref(b, f, window, c, segments,
                                               seg_len, thinning, thr_s):
+    """The wrapper's plain version (codes and CompIM table) against the
+    reference's oracle and Pallas kernel on the positions gathered from
+    the same table."""
     rng = np.random.default_rng(b * 100 + c)
-    pos = rng.integers(0, seg_len, (b, f, window, c, segments), dtype=np.uint8)
-    elec = rng.integers(0, seg_len, (c, segments), dtype=np.uint8)
+    codes, item, elec, pos = _compim_operands(rng, (b, f), window, c, 64,
+                                              segments, seg_len)
     kw = dict(window=window, segments=segments, seg_len=seg_len,
               temporal_threshold=max(1, window // 8),
               spatial_thinning=thinning, spatial_threshold=thr_s)
-    got = hv.to_u32(enc_ops.encoder(torch.from_numpy(pos),
-                                    torch.from_numpy(elec), **kw))
+    got = _enc_plain(codes, item, elec, **kw)
     np.testing.assert_array_equal(
         got, np.asarray(_jit(j_encoder_ref, **kw)(jnp.asarray(pos), jnp.asarray(elec))))
     np.testing.assert_array_equal(
         got, np.asarray(_jit(encoder_pallas, interpret=True, **kw)(
             jnp.asarray(pos), jnp.asarray(elec))))
+    assert enc_ops.encoder.launches == 0   # CPU tensors never launch
 
 
 def test_encode_frames_fused_matches_reference_wrapper():
@@ -123,6 +144,259 @@ def test_encode_frames_fused_matches_reference_wrapper():
     got = enc_ops.encode_frames_fused(tparams, torch.from_numpy(codes), tcfg)
     want = j_encode_fused(jparams, jnp.asarray(codes), jcfg, use_kernel=False)
     np.testing.assert_array_equal(hv.to_u32(got), np.asarray(want))
+
+
+# (window, channels, segments, seg_len, lbp_bits, thinning, spatial threshold)
+_ENC_CASES = [
+    (1, 5, 7, 32, 6, False, 1),
+    (31, 1, 8, 48, 3, True, 1),       # one channel, 8 codes: many past K - 1
+    (40, 5, 7, 32, 6, True, 2),
+    (48, 64, 8, 128, 6, False, 1),
+    (256, 5, 8, 48, 3, True, 2),
+    (32, 200, 8, 32, 6, True, 3),
+    (64, 64, 8, 128, 6, True, 64),    # threshold C
+    (32, 5, 7, 32, 6, True, 6),       # threshold C + 1: no spatial bit
+    (32, 5, 7, 32, 6, True, 0),       # threshold 0: every spatial bit
+    (40, 3, 8, 256, 4, False, 1),     # D = 2048
+]
+
+
+@pytest.mark.parametrize("window,c,segments,seg_len,lbp_bits,thinning,thr_s",
+                         _ENC_CASES)
+def test_encoder_new_operands_match_reference_wrapper(window, c, segments, seg_len,
+                                                      lbp_bits, thinning, thr_s):
+    """``encoder(codes, item_pos, elec)`` (plain on the CPU) against the
+    reference's ``encode_frames_fused`` through its jnp oracle, and through
+    the Pallas kernel in interpret mode where ``window % 32 == 0`` (the
+    Pallas kernel drops ``window % 32`` cycles of every frame)."""
+    dim = segments * seg_len
+    cfg_kw = dict(dim=dim, segments=segments, channels=c, window=window,
+                  lbp_bits=lbp_bits, spatial_thinning=thinning,
+                  spatial_threshold=thr_s, temporal_threshold=max(1, window // 6))
+    jcfg = JConfig(**cfg_kw)
+    k = 1 << lbp_bits
+    rng = np.random.default_rng(window * 1000 + c)
+    codes, item, elec, _ = _compim_operands(rng, (2,), 2 * window + 3, c, k,
+                                            segments, seg_len)
+    codes = codes.reshape(2, 2 * window + 3, c)
+    jparams = JIMParams(jnp.asarray(item), jnp.asarray(elec), dim, segments)
+    f = codes.shape[1] // window
+    got = _enc_plain(codes[:, :f * window].reshape(2, f, window, c), item, elec,
+                     window=window, segments=segments, seg_len=seg_len,
+                     temporal_threshold=jcfg.temporal_threshold,
+                     spatial_thinning=thinning, spatial_threshold=thr_s)
+    for use_kernel in (False, True) if window % 32 == 0 else (False,):
+        want = _jit(j_encode_fused, cfg=jcfg, use_kernel=use_kernel)(
+            jparams, jnp.asarray(codes))
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=f"{use_kernel=}")
+
+
+@pytest.mark.parametrize("window", [32, 40, 48, 64])
+def test_encoder_follows_ref_where_pallas_drops_the_window_tail(window):
+    """The reference's Pallas encoder loops over ``window // 32`` chunks of
+    32 cycles, so it drops the last ``window % 32`` cycles of every frame
+    (a fault of the reference, ROADMAP queue 3); the port computes the
+    reference's ``encoder_ref`` at every window.  The Pallas kernel is held
+    against the port only where ``window % 32 == 0``."""
+    rng = np.random.default_rng(window)
+    codes, item, elec, pos = _compim_operands(rng, (1, 2), window, 5, 64, 4, 32)
+    kw = dict(window=window, segments=4, seg_len=32, temporal_threshold=3)
+    got = _enc_plain(codes, item, elec, **kw)
+    np.testing.assert_array_equal(
+        got, np.asarray(_jit(j_encoder_ref, **kw)(jnp.asarray(pos), jnp.asarray(elec))))
+    pallas = np.asarray(_jit(encoder_pallas, interpret=True, **kw)(
+        jnp.asarray(pos), jnp.asarray(elec)))
+    if window % 32 == 0:
+        np.testing.assert_array_equal(got, pallas)
+
+
+def test_encode_frames_fused_gathers_inside_the_kernel_on_cuda(monkeypatch):
+    """For CUDA tensors ``encode_frames_fused`` hands the frame-viewed codes
+    and the CompIM table to the kernel: no position tensor is gathered.
+    The launch is recorded instead of run (no card here)."""
+    import repro_torch.kernels.hdc_encoder.ref as enc_ref
+    from repro_torch.kernels import build
+
+    calls = []
+
+    class Lib:
+        def hdc_encoder_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the position gather ran")
+
+    monkeypatch.setattr(enc_ops, "use_plain", lambda *t: False)
+    monkeypatch.setattr(enc_ref, "im_lookup_positions", no_gather)
+    monkeypatch.setattr(build, "lib", lambda: Lib())
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(enc_ops.encoder, "launches", 0)
+    cfg = HDCConfig(dim=256, segments=8, channels=6, window=32,
+                    spatial_thinning=True, spatial_threshold=2,
+                    temporal_threshold=5)
+    rng = np.random.default_rng(3)
+    params = IMParams(torch.from_numpy(rng.integers(0, 32, (6, 64, 8), dtype=np.uint8)),
+                      torch.from_numpy(rng.integers(0, 32, (6, 8), dtype=np.uint8)),
+                      256, 8)
+    codes = torch.from_numpy(rng.integers(0, 64, (2, 100, 6), dtype=np.uint8))
+    out = enc_ops.encode_frames_fused(params, codes, cfg)
+    assert out.shape == (2, 3, 8) and enc_ops.encoder.launches == 1
+    (args,) = calls
+    assert args[4:13] == (6, 32, 6, 64, 8, 32, 5, 1, 2)
+    assert args[1] == params.item_pos.data_ptr() and args[2] == params.elec_pos.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# numpy mirrors of the CUDA kernels' dataflow (csrc/hdc_encoder.cu, lbp.cu)
+# ---------------------------------------------------------------------------
+
+def _popcount32(v: np.ndarray) -> np.ndarray:
+    return np.unpackbits(v.astype("<u4").view(np.uint8).reshape(*v.shape, 4),
+                         axis=-1).sum(-1, dtype=np.int64)
+
+
+def _warp_transpose(v: np.ndarray) -> np.ndarray:
+    """warp_transpose32 (common.cuh) over axis 1, the 32 lanes."""
+    lane = np.arange(32).reshape((1, 32) + (1,) * (v.ndim - 2))
+    for i, m in enumerate([0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333,
+                           0x55555555]):
+        s, m = 16 >> i, np.uint32(m)
+        t = v[:, np.arange(32) ^ s]                            # __shfl_xor_sync
+        v = np.where(lane & s, (v & ~m) | ((t & ~m) >> np.uint32(s)),
+                     (v & m) | ((t & m) << np.uint32(s))).astype(np.uint32)
+    return v
+
+
+def _encoder_mirror(codes, item, elec, *, window, segments, seg_len,
+                    temporal_threshold, spatial_thinning, spatial_threshold):
+    """hdc_encoder.cu in numpy: the bound table as a block builds it, the
+    launcher's choice of mode and planes, a lane per cycle rippling each
+    position's one-hot (bit s * L + p, word k) up a saturating bit-sliced
+    counter whose top plane is sticky, the top-down compare, then per
+    32-cycle group (a warp) the shuffle transpose and popcounts, the groups
+    summed, the threshold and pack.  Lanes past the window leave zero
+    rows."""
+    n, _, c = codes.shape
+    k, s, seg = item.shape[1], segments, seg_len
+    d = s * seg
+    w = d // 32
+    v = item[:, :min(k, 256)].astype(np.int64) + elec[:, None, :]
+    tab = np.where(v < seg, v, np.where(v - seg < seg, v - seg, v % seg))
+    spat, thr, n_planes = -1, 1, 1
+    if spatial_thinning:
+        if spatial_threshold <= 0:
+            spat = 1
+        elif spatial_threshold > c:
+            spat = 0
+        else:
+            thr = spatial_threshold
+            while (1 << (n_planes - 1)) < thr:
+                n_planes += 1
+    groups = -(-window // 32)
+    rows = np.zeros((n, groups * 32, w), np.uint32)
+    if spat == 1:
+        rows[:, :window] = _ONES
+    elif spat == -1:
+        planes = np.zeros((n_planes, n, window, w), np.uint32)
+        bits = (np.arange(s) * seg
+                + tab[np.arange(c), np.minimum(codes, k - 1)])   # (N, win, C, S)
+        for ch in range(c):
+            for si in range(s):
+                b = bits[:, :, ch, si]
+                kk = (b >> 5)[..., None]
+                x = (np.uint32(1) << (b & 31).astype(np.uint32))[..., None]
+                for p in range(n_planes - 1):              # atomicXor ripple
+                    old = np.take_along_axis(planes[p], kk, -1)
+                    np.put_along_axis(planes[p], kk, old ^ x, -1)
+                    x = x & old
+                top = planes[-1]                            # sticky atomicOr
+                np.put_along_axis(top, kk, np.take_along_axis(top, kk, -1) | x, -1)
+        spatial = planes[-1].copy()
+        if n_planes > 1 and thr >> (n_planes - 1) == 0:
+            gt, eq = np.zeros_like(spatial), np.full_like(spatial, _ONES)
+            for p in reversed(range(n_planes - 1)):
+                t = _ONES if (thr >> p) & 1 else np.uint32(0)
+                gt |= eq & planes[p] & ~t
+                eq &= ~(planes[p] ^ t)
+            spatial |= gt | eq
+        rows[:, :window] = spatial
+    counts = np.zeros((n, d), np.int64)
+    for g in range(groups):
+        tv = _warp_transpose(rows[:, 32 * g:32 * g + 32])     # (N, lane b, W)
+        counts += _popcount32(tv).transpose(0, 2, 1).reshape(n, d)
+    bits = (counts >= temporal_threshold).reshape(n, w, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("window,c,segments,seg_len,lbp_bits,thinning,thr_s",
+                         _ENC_CASES)
+def test_encoder_mirror_matches_plain(window, c, segments, seg_len, lbp_bits,
+                                      thinning, thr_s):
+    rng = np.random.default_rng(window * 7 + c)
+    codes, item, elec, _ = _compim_operands(rng, (3,), window, c, 1 << lbp_bits,
+                                            segments, seg_len)
+    kw = dict(window=window, segments=segments, seg_len=seg_len,
+              temporal_threshold=max(1, window // 6), spatial_thinning=thinning,
+              spatial_threshold=thr_s)
+    np.testing.assert_array_equal(_encoder_mirror(codes, item, elec, **kw),
+                                  _enc_plain(codes, item, elec, **kw))
+
+
+@pytest.mark.parametrize("thr", [0, 1, 2, 3, 4, 5, 64, 65])
+def test_encoder_mirror_thresholds_and_wide_positions(thr):
+    """Positions past L and codes past K - 1 (the table's modulo and the
+    clamp), temporal thresholds 0 and window + 1, and spatial thresholds
+    at and between powers of two (the top plane alone, or the compare)."""
+    rng = np.random.default_rng(thr)
+    window, c, s, seg = 40, 64, 8, 96
+    codes, item, elec, _ = _compim_operands(rng, (2,), window, c, 16, s, seg)
+    item = rng.integers(0, 256, item.shape, dtype=np.uint8)
+    elec = rng.integers(0, 256, elec.shape, dtype=np.uint8)
+    for tthr in (0, 5, window + 1):
+        kw = dict(window=window, segments=s, seg_len=seg, temporal_threshold=tthr,
+                  spatial_thinning=True, spatial_threshold=thr)
+        np.testing.assert_array_equal(_encoder_mirror(codes, item, elec, **kw),
+                                      _enc_plain(codes, item, elec, **kw))
+
+
+def _lbp_mirror(x: np.ndarray, bits: int, run: int = 32) -> np.ndarray:
+    """lbp.cu in numpy: a thread per 4 channels (zero past C) and ``run``
+    output steps; each sample read once, compared with the previous one,
+    and shifted into 4 byte-wide codes of one word."""
+    b, t, c = x.shape
+    t_out, q = t - bits, -(-c // 4)
+    xp = np.zeros((b, t, 4 * q), np.float32)
+    xp[..., :c] = x
+    xp = xp.reshape(b, t, q, 4)
+    keep = np.uint32(((1 << bits) - 1) * 0x01010101)
+    out = np.zeros((b, t_out, 4 * q), np.uint8)
+    for bb in range(b):
+        for t0 in range(0, t_out, run):
+            n = min(run, t_out - t0) + bits
+            prev, codes = xp[bb, t0], np.zeros(q, np.uint32)
+            for i in range(1, n):
+                cur = xp[bb, t0 + i]
+                d = sum((cur[:, j] > prev[:, j]).astype(np.uint32) << np.uint32(8 * j)
+                        for j in range(4))
+                codes = (((codes << np.uint32(1)) & np.uint32(0xFEFEFEFE)) | d) & keep
+                prev = cur
+                if i >= bits:
+                    out[bb, t0 + i - bits] = codes.astype("<u4").view(np.uint8)
+    return out[..., :c]
+
+
+@pytest.mark.parametrize("b,t,c,bits", [(2, 75, 7, 6), (1, 40, 65, 1),
+                                        (1, 101, 65, 8), (3, 33, 8, 6),
+                                        (1, 9, 4, 8), (2, 70, 64, 6)])
+def test_lbp_mirror_matches_plain(b, t, c, bits):
+    rng = np.random.default_rng(t * c + bits)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    x[0, t // 2, 0] = np.nan
+    x[-1, 3, c - 1] = np.nan
+    x[0, 5, c // 2] = x[0, 4, c // 2]     # equal neighbours compare false
+    want = lbp_ops.lbp_codes(torch.from_numpy(x), bits=bits).numpy()
+    np.testing.assert_array_equal(_lbp_mirror(x, bits), want)
 
 
 # ---------------------------------------------------------------------------
