@@ -21,7 +21,13 @@ Phases (one line each, any failure exits non-zero):
    time, the calls queued behind a device-side sleep so that the host's
    launch cost is left out) and the card's least time for the same work;
    the fleet and encoder kernels are timed in each mode at the main shape
-   (the encoder's thinning at spatial thresholds 2 and 5);
+   (the encoder's thinning at spatial thresholds 2 and 5); ``hdc_am`` also
+   at 33 classes and W = 64, and its wrapper's host path split piece by
+   piece; both encoders with their AM epilogue (``encode_score_fused``,
+   scores and predictions) at the main shape as ``infer(codes[1:])`` gives
+   it (``or``, thinning at 2, dense; beside it the old five-launch chain),
+   D = 2048, 1, 3 and 33 classes, tied class rows, window 40 and a strided
+   batch;
 4. the main path (``sparse_compim``) at the paper's geometry: raw iEEG ->
    LBP codes on the card for 16 synthetic patients, per-patient
    calibration + one-shot training, detection on the held-out seizures,
@@ -30,8 +36,8 @@ Phases (one line each, any failure exits non-zero):
 5. the main path against the plain path on the CPU: one patient's
    training and inference, and the first 32 fleet sessions;
 6. the dense path at the paper's geometry: the same 16 patients' codes
-   through ``dense_hdc`` and the AM in ``hamming`` mode (one-shot training,
-   detection), then a 1024-session dense fleet in the same rounds (fleet
+   through ``dense_hdc`` (one-shot training; detection with its AM
+   epilogue in ``hamming`` mode), then a 1024-session dense fleet in the same rounds (fleet
    kernel in ``majority`` mode), held against the CPU plain path as in 5;
 7. the ``sparse_naive`` path, short: 2 patients on 2048-cycle slices
    (calibration, training, inference through the encoder kernel with
@@ -39,8 +45,12 @@ Phases (one line each, any failure exits non-zero):
    against the CPU's bit-domain plain path.
 
 Each path's offline chain (calibration, training, inference) runs under
-the profiler, which reports its device-busy time by kernel.  Each path's
-kernel launches are counted from zero just before it and read just after.
+the profiler, which reports its device-busy time by kernel; on each path
+one patient's ``scores(encode_frames(x))`` (the standalone AM kernel) must
+equal its fused ``infer(x)``.  After each path, one ``infer(codes[1:])``
+call is profiled (it must run exactly one device kernel) and timed against
+the old chain.  Each path's kernel launches are counted from zero just
+before it and read just after.
 The line before the last is a JSON object with every kernel's launches
 over the paths, times and bound; the last line is the device summary.
 """
@@ -91,11 +101,12 @@ KERNELS = {
     "dense_hdc": ("src/repro_torch/kernels/csrc/dense_hdc.cu",
                   "src/repro/kernels/dense_hdc/kernel.py:50"),
 }
-# the kernels each path must launch
+# the kernels each path must launch; am_epilogue_*: the encoder kernels
+# launched with their AM epilogue (encode_score_fused, HDCPipeline.infer)
 PATH_KERNELS = {
-    "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet"),
-    "dense": ("dense_hdc", "hdc_am", "hdc_fleet"),
-    "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet"),
+    "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
+    "dense": ("dense_hdc", "hdc_am", "hdc_fleet", "am_epilogue_dense"),
+    "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
 }
 
 
@@ -186,15 +197,20 @@ class KernelCheck:
     def compare(self, name: str, case: str, wrapper, kernel, plain, *,
                 n_bytes: float, n_ops: float, main: bool, reps: int = 10,
                 plain_reps: int = 3) -> None:
-        """Hold ``kernel()`` against ``plain()`` and time both; ``main``
-        marks the case at the main path's shape that the kernel's JSON row
-        reports.  ``launches`` counts this check's own launches."""
+        """Hold ``kernel()`` against ``plain()`` (a tensor, or a tuple of
+        tensors held pairwise) and time both; ``main`` marks the case at the
+        main path's shape that the kernel's JSON row reports.  ``launches``
+        counts this check's own launches."""
         before = wrapper.launches
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-            if got.shape == want.shape and got.numel() else (0.0 if equal else float("inf"))
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        pairs = list(zip(got_t, want_t))
+        equal = len(got_t) == len(want_t) and all(torch.equal(a, b) for a, b in pairs)
+        err = max((float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   if a.shape == b.shape and a.numel() else
+                   (0.0 if torch.equal(a, b) else float("inf"))) for a, b in pairs)
         row = self.rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
@@ -210,7 +226,82 @@ class KernelCheck:
             f"(device {dev_ms:.4f} ms) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
             f"({b_by}: {n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop)")
         expect(equal, f"{name} {case}: kernel differs from its plain version")
-        return r
+        return {**r, "max_abs_err": err}
+
+
+def host_split(label: str, pieces: dict, calls: int = 2000, passes: int = 3) -> dict:
+    """A wrapper's host path piece by piece: each piece alone ``calls``
+    times between two ``time.perf_counter_ns`` readings, the least mean of
+    ``passes`` passes, in microseconds a call; "rest" is the whole wrapper
+    (the last piece) less the others."""
+    split = {}
+    for name, fn in pieces.items():
+        best = float("inf")
+        for _ in range(passes):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter_ns() - t0) / calls / 1e3)
+            torch.cuda.synchronize()
+        split[name] = best
+    whole = list(pieces)[-1]
+    split["rest"] = split[whole] - sum(v for k, v in split.items() if k != whole)
+    log(f"[launch] {label}, us a call (least mean of {passes} x {calls} calls): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return split
+
+
+def am_launch_split(shape) -> dict:
+    """The standalone AM wrapper's host path at the main shape: the checks,
+    the output's allocation, the stream lookup, the ``ctypes`` call (the
+    CUDA launch is inside it) and the error check; "rest" is the reshapes,
+    ``build.lib()``, the mode lookup and the count."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import require, use_plain
+    from repro_torch.kernels.hdc_am import ops as am_ops
+
+    b, c, w = shape
+    g = torch.Generator().manual_seed(SEED + 1)
+    q, cls = _rand_words(g, b, w), _rand_words(g, c, w)
+    lib = build.lib()
+    out = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    stream = build.stream_ptr(q)
+    return host_split(f"am_search host path at q{(b, w)} c{(c, w)}", {
+        "use_plain+require": lambda: (use_plain(q, cls), require(q, "queries", torch.int32),
+                                      require(cls, "classes", torch.int32, (c, w))),
+        "torch.empty": lambda: torch.empty((b, c), dtype=torch.int32, device=q.device),
+        "build.stream_ptr": lambda: build.stream_ptr(q),
+        "ctypes call": lambda: lib.hdc_am_launch(q.data_ptr(), cls.data_ptr(), out.data_ptr(),
+                                                 b, c, w, 0, w * 32, stream),
+        "build.check": lambda: build.check(0, "hdc_am"),
+        "whole wrapper": lambda: am_ops.am_search(q, cls, mode="overlap", dim=w * 32),
+    })
+
+
+def fused_launch_split(params, codes, cfg, cls) -> dict:
+    """The sparse encoder's AM-epilogue wrapper at the main shape: its
+    ``ctypes`` call (the launcher's own runtime calls and the launch) against
+    the whole wrapper; "rest" is the wrapper's Python."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import stream_rows
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+
+    per_row, pitch = stream_rows(codes, cfg.window)
+    lead = (codes.shape[0], per_row)
+    scores = torch.empty((*lead, cls.shape[0]), dtype=torch.int32, device=codes.device)
+    preds = torch.empty(lead, dtype=torch.int32, device=codes.device)
+    lib, stream = build.lib(), build.stream_ptr(codes)
+    args = (codes.data_ptr(), params.item_pos.data_ptr(), params.elec_pos.data_ptr(), None,
+            lead[0] * per_row, cfg.window, codes.shape[-1],
+            params.item_pos.shape[1], cfg.segments, cfg.seg_len, cfg.temporal_threshold, 0,
+            cfg.spatial_threshold, per_row, pitch, cls.data_ptr(), scores.data_ptr(),
+            preds.data_ptr(), cls.shape[0], stream)
+    return host_split(f"encode_score_fused host path at codes{tuple(codes.shape)}", {
+        "ctypes call": lambda: lib.hdc_encoder_launch(*args),
+        "whole wrapper": lambda: enc_ops.encode_score_fused(params, codes, cfg, cls),
+    }, calls=1000)
 
 
 def check_kernels(shapes: dict) -> KernelCheck:
@@ -282,8 +373,11 @@ def check_kernels(shapes: dict) -> KernelCheck:
             modes[f"thin_thr{thr}" if thin else "or"] = r
     kc.rows["hdc_encoder"]["modes"] = modes
 
-    # hdc_am: (B, W) x (C, W) -> (B, C)
-    for case, (b, c, w) in (("main", shapes["am"]), ("odd", (7, 5, 3))):
+    # hdc_am: (B, W) x (C, W) -> (B, C); a warp per row (rows share a warp
+    # where W < 32); 33 classes take five passes of 8 and wrap the lanes
+    # that store them
+    for case, (b, c, w) in (("main", shapes["am"]), ("odd", (7, 5, 3)),
+                            ("c33", (477, 33, 32)), ("w64", (300, 3, 64))):
         for mode in ("overlap", "hamming"):
             q, cls = _rand_words(g, b, w), _rand_words(g, c, w)
             kc.compare("hdc_am", f"{case} q{(b, w)} c{(c, w)} {mode}",
@@ -291,6 +385,7 @@ def check_kernels(shapes: dict) -> KernelCheck:
                        lambda: am_ref.am_search_ref(q, cls, mode=mode, dim=w * 32),
                        n_bytes=(b + c) * w * 4 + b * c * 4, n_ops=b * c * w * 3,
                        main=case == "main" and mode == "overlap", reps=20)
+    kc.rows["hdc_am"]["launch_split_us"] = am_launch_split(shapes["am"])
 
     # Bounds of the two bit-sliced kernels count one operation per
     # (cycle, channel, word): a word operation on bit-sliced counter planes
@@ -362,7 +457,125 @@ def check_kernels(shapes: dict) -> KernelCheck:
                    n_bytes=codes.numel() + (table.numel() + elec.numel() + n * w) * 4,
                    n_ops=n * win * w * (c + 1), main=case == "main", reps=10,
                    plain_reps=2)
+    check_fused(kc, g, shapes)
     return kc
+
+
+def _old_chain(encode, frames, classes, mode: str, dim: int):
+    """The offline inference as it ran before the AM epilogue: the frame
+    view copied, the encoder, the standalone AM kernel, argmax and the cast
+    to int32 (five launches)."""
+    from repro_torch.core import am
+    from repro_torch.kernels.hdc_am.ops import am_search
+
+    s = am_search(encode(frames.contiguous()), classes, mode=mode, dim=dim)
+    return s, am.am_predict(s)
+
+
+def check_fused(kc: KernelCheck, g, shapes: dict) -> None:
+    """The encoders with their AM epilogue (``encode_score_fused``) against
+    their plain versions (encoder, ``am_search_ref``, ``am_predict``), scores
+    and predictions equal: the main shape as ``infer(codes[1:])`` gives it
+    (a strided batch of 159 frames a row) in ``or`` mode, with thinning at
+    2, and dense; D = 2048 (the dense frame split over two blocks: the
+    cross-block sum); 1, 3 and 33 classes; tied class rows (prediction 0);
+    window 40; a strided batch of every other row at an odd offset.  At
+    the main shape the encoders' rows also get the fused path's time and
+    the old five-launch chain's on the same inputs."""
+    from repro_torch.core.classifier import HDCConfig, frame_view
+    from repro_torch.core.im import DenseIMParams, IMParams
+    from repro_torch.kernels.dense_hdc import ops as dense_ops, ref as dense_ref
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops, ref as enc_ref
+
+    r, t_main, c_main = shapes["codes"]
+    # (case, (rows, T, C), rows taken, HDCConfig fields, classes, tied)
+    cases = (
+        ("main or", (r, t_main, c_main), slice(1, None), dict(temporal_threshold=114), 2, False),
+        ("main thin2", (r, t_main, c_main), slice(1, None),
+         dict(spatial_thinning=True, spatial_threshold=2, temporal_threshold=30), 2, False),
+        ("main dense", (r, t_main, c_main), slice(1, None), dict(variant="dense"), 2, False),
+        ("d2048", (3, 5 * 64 + 9, 33), slice(1, None),
+         dict(dim=2048, channels=33, window=64, temporal_threshold=9), 2, False),
+        ("d2048 dense", (3, 5 * 64 + 9, 33), slice(1, None),
+         dict(variant="dense", dim=2048, channels=33, window=64), 3, False),
+        ("c1", (3, 4 * 64 + 5, 64), slice(1, None), dict(window=64, temporal_threshold=20), 1, False),
+        ("c3", (3, 4 * 64 + 5, 64), slice(1, None), dict(window=64, temporal_threshold=20), 3, False),
+        ("c33", (3, 4 * 64 + 5, 64), slice(1, None), dict(window=64, temporal_threshold=20), 33, False),
+        ("c1 dense", (3, 4 * 64 + 5, 64), slice(1, None), dict(variant="dense", window=64), 1, False),
+        ("c33 dense", (3, 4 * 64 + 5, 64), slice(1, None), dict(variant="dense", window=64), 33, False),
+        ("c33 d2048 dense", (2, 3 * 32 + 1, 20), slice(1, None),
+         dict(variant="dense", dim=2048, channels=20, window=32), 33, False),
+        ("tied", (3, 4 * 64 + 5, 64), slice(1, None), dict(window=64, temporal_threshold=20), 3, True),
+        ("tied dense", (3, 4 * 64 + 5, 64), slice(1, None), dict(variant="dense", window=64), 3, True),
+        ("w40", (3, 7 * 40 + 3, 64), slice(1, None),
+         dict(window=40, spatial_thinning=True, spatial_threshold=2, temporal_threshold=6), 2, False),
+        ("w40 dense", (3, 7 * 40 + 3, 64), slice(1, None), dict(variant="dense", window=40), 2, False),
+        ("strided", (6, 3 * 48 + 11, 7), slice(1, None, 2),
+         dict(segments=7, dim=224, channels=7, window=48, temporal_threshold=5), 2, False),
+        ("strided dense", (6, 3 * 48 + 11, 7), slice(1, None, 2),
+         dict(variant="dense", dim=96, channels=7, window=48), 2, False),
+    )
+    for case, (rows, t, c), take, fields, n_cls, tied in cases:
+        cfg = HDCConfig(**{"channels": c, **fields})
+        main = case.startswith("main")
+        codes = torch.randint(0, cfg.codes if main else min(cfg.codes + 8, 256), (rows, t, c),
+                              generator=g, dtype=torch.uint8).cuda()[take]
+        words = cfg.dim // 32
+        cls = _rand_words(g, 1 if tied else n_cls, words)
+        cls = cls.expand(n_cls, words).contiguous() if tied else cls
+        frames = frame_view(codes, cfg.window)
+        n = frames.shape[0] * frames.shape[1]
+        if cfg.variant == "dense":
+            params = DenseIMParams(_rand_words(g, c, cfg.codes, words), _rand_words(g, c, words),
+                                   cfg.dim)
+            ops, name, mode = dense_ops, "dense_hdc", "hamming"
+            plain_kw = dict(window=cfg.window, dim=cfg.dim)
+            plain = lambda: dense_ref.encode_score_plain(  # noqa: E731
+                frames, params.item_packed, params.elec_packed, cls, **plain_kw)
+            encode = lambda f: dense_ops.dense_encoder(  # noqa: E731
+                f, params.item_packed, params.elec_packed, **plain_kw)
+            table_bytes = params.item_packed.numel() * 4 + params.elec_packed.numel() * 4
+            n_ops = n * cfg.window * words * (c + 1)
+        else:
+            s = cfg.segments
+            params = IMParams(
+                torch.randint(0, cfg.seg_len, (c, cfg.codes, s), generator=g,
+                              dtype=torch.uint8).cuda(),
+                torch.randint(0, cfg.seg_len, (c, s), generator=g, dtype=torch.uint8).cuda(),
+                cfg.dim, s)
+            ops, name, mode = enc_ops, "hdc_encoder", "overlap"
+            plain_kw = enc_ops._cfg_kw(cfg)
+            plain = lambda: enc_ref.encode_score_plain(  # noqa: E731
+                frames, params.item_pos, params.elec_pos, cls, **plain_kw)
+            encode = lambda f: enc_ops.encoder(  # noqa: E731
+                f, params.item_pos, params.elec_pos, **plain_kw)
+            table_bytes = params.item_pos.numel() + params.elec_pos.numel()
+            n_ops = frames.numel() * s + n * cfg.window * words
+        fused = lambda: ops.encode_score_fused(params, codes, cfg, cls)  # noqa: E731
+        r = kc.compare(
+            name, f"+AM {case} codes{tuple(codes.shape)} D={cfg.dim} "
+            f"classes={n_cls}", ops.encode_score_fused, fused, plain,
+            n_bytes=frames.numel() + table_bytes + cls.numel() * 4 + n * (n_cls + 1) * 4,
+            n_ops=n_ops + n * n_cls * words * 2, main=False,
+            reps=50 if main else 5, plain_reps=1)
+        am_row = kc.rows["hdc_am"]
+        am_row["max_abs_err"] = max(am_row["max_abs_err"], r["max_abs_err"])
+        if tied:
+            expect(bool((fused()[1] == 0).all()), f"{name} {case}: tied classes must predict 0")
+        if case == "main or":
+            kc.rows["hdc_am"]["fused_launch_split_us"] = fused_launch_split(params, codes, cfg, cls)
+        if main:
+            old = lambda: _old_chain(encode, frames, cls, mode, cfg.dim)  # noqa: E731
+            expect(all(torch.equal(a, b) for a, b in zip(old(), fused())),
+                   f"{name} {case}: the old chain differs from the fused path")
+            o_ms, o_dev = cuda_ms(old, 50), cuda_ms(old, 50, queued=True)
+            key = case.split()[1]
+            kc.rows[name].setdefault("fused", {})[key] = {
+                "ms": r["ms"], "device_ms": r["device_ms"],
+                "unfused_ms": o_ms, "unfused_device_ms": o_dev}
+            log(f"[kernel] {name:12s} {case}: fused {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms), the old five-launch chain {o_ms:.4f} ms "
+                f"(device {o_dev:.4f} ms)")
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +680,13 @@ def _train_and_detect(tag: str, cfg, records, calibrate: bool) -> dict:
         total += p_np.size
         for i in range(p_np.shape[0]):
             results.append(metrics.detection_metrics(p_np[i], onsets[1 + i]))
+    # the standalone AM kernel (HDCPipeline.scores) on one patient's frames
+    # against the fused infer's scores: it stays on every path
+    pid, codes, _, _ = records[0]
+    pipe = res["bank"][f"patient{pid}"]
+    s = pipe.scores(pipe.encode_frames(codes[1:]))
+    expect(torch.equal(s, res["scores"][pid]),
+           f"{tag}: scores(encode_frames(x)) differ from infer(x)'s scores")
     agg = metrics.aggregate(results)
     log(f"[{tag}] detection: {agg['n']} held-out seizures, accuracy "
         f"{agg['detection_accuracy']:.4f}, mean delay {agg['mean_delay_s']:.3f} s, "
@@ -629,6 +849,75 @@ def naive_records(patients, codes) -> list:
     return out
 
 
+def _old_infer(pipe, codes):
+    """``HDCPipeline.infer`` as it ran before the AM epilogue (copy,
+    encoder, standalone AM, argmax, cast)."""
+    from repro_torch.core.classifier import frame_view
+    from repro_torch.core.pipeline import _fused_sparse_cfg
+    from repro_torch.kernels.dense_hdc.ops import dense_encoder
+    from repro_torch.kernels.hdc_encoder.ops import _cfg_kw, encoder
+
+    cfg, p = pipe.cfg, pipe.params
+    if cfg.variant == "dense":
+        encode = lambda f: dense_encoder(f, p.item_packed, p.elec_packed,  # noqa: E731
+                                         window=cfg.window, dim=cfg.dim)
+    else:
+        encode = lambda f: encoder(f, p.item_pos, p.elec_pos,  # noqa: E731
+                                   **_cfg_kw(_fused_sparse_cfg(cfg)))
+    mode = "hamming" if cfg.variant == "dense" else "overlap"
+    return _old_chain(encode, frame_view(codes, cfg.window), pipe.class_hvs, mode, cfg.dim)
+
+
+def infer_probe(tag: str, res: dict) -> dict:
+    """One patient's ``infer(codes[1:])``: the device kernels one call runs
+    (profiler; exactly one, the encoder with its AM epilogue), and its time
+    as the host issues the calls and on the device against the old
+    five-launch chain on the same inputs, timed in turns."""
+    pid, codes, _, _ = res["records"][0]
+    pipe = res["bank"][f"patient{pid}"]
+    x = codes[1:]
+    fused, old = (lambda: pipe.infer(x)), (lambda: _old_infer(pipe, x))
+    expect(all(torch.equal(a, b) for a, b in zip(fused(), old())),
+           f"{tag}: the fused infer differs from the old chain")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counts = {}
+    for name, fn in (("infer", fused), ("old chain", old)):
+        # one warm-up step under the profiler, then the counted call (the
+        # tracer may miss a short call's kernels in the step that starts
+        # it); the step's own device-side annotation is not a kernel
+        seen = counts[name] = []
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p, seen=seen: seen.extend(
+                    e.name for e in p.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep"))) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+    log(f"[{tag}] device kernels in one infer call at codes{tuple(x.shape)}: "
+        f"{len(counts['infer'])} ({'; '.join(k[:50] for k in counts['infer'])}); "
+        f"the old chain: {len(counts['old chain'])} "
+        f"({'; '.join(k[:40] for k in counts['old chain'])})")
+    expect(len(counts["infer"]) == 1, f"{tag}: one infer call ran "
+           f"{len(counts['infer'])} device kernels, not one")
+    times = {}
+    for name, fn in (("old", old), ("fused", fused), ("fused", fused), ("old", old)):
+        times.setdefault(name, []).append((cuda_ms(fn, 50), cuda_ms(fn, 50, queued=True)))
+    out = {"kernels_per_call": len(counts["infer"]),
+           "old_kernels_per_call": len(counts["old chain"]),
+           "ms": [t[0] for t in times["fused"]], "device_ms": [t[1] for t in times["fused"]],
+           "old_ms": [t[0] for t in times["old"]], "old_device_ms": [t[1] for t in times["old"]]}
+    log(f"[{tag}] infer(codes{tuple(x.shape)}): fused {', '.join(f'{v:.4f}' for v in out['ms'])} "
+        f"ms (device {', '.join(f'{v:.4f}' for v in out['device_ms'])}); the old chain "
+        f"{', '.join(f'{v:.4f}' for v in out['old_ms'])} ms (device "
+        f"{', '.join(f'{v:.4f}' for v in out['old_device_ms'])}); turns: old, fused, fused, old")
+    return out
+
+
 class Launches:
     """Reads each path's kernel launches, counted from zero."""
 
@@ -661,15 +950,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.pipeline import HDCConfig
     from repro_torch.data import ieeg
-    from repro_torch.kernels.dense_hdc.ops import dense_encoder
+    from repro_torch.kernels.dense_hdc import ops as dense_ops
     from repro_torch.kernels.hdc_am.ops import am_search
-    from repro_torch.kernels.hdc_encoder.ops import encoder
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
     from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
     from repro_torch.kernels.lbp.ops import lbp_codes
 
-    launches = Launches({"lbp": lbp_codes, "hdc_encoder": encoder,
+    launches = Launches({"lbp": lbp_codes, "hdc_encoder": enc_ops.encoder,
                          "hdc_am": am_search, "hdc_fleet": fleet_counts_kernel,
-                         "dense_hdc": dense_encoder})
+                         "dense_hdc": dense_ops.dense_encoder,
+                         "am_epilogue_sparse": enc_ops.encode_score_fused,
+                         "am_epilogue_dense": dense_ops.encode_score_fused})
     t_start = time.perf_counter()
     environment()
     build_kernels()
@@ -682,6 +973,7 @@ def main() -> int:
     frames = rec_t // 256
     shapes = {
         "lbp": (SEIZURES, rec_t + 6, 64),
+        "codes": (SEIZURES, rec_t, 64),
         "encoder": (SEIZURES - 1, frames, 256, 64, 8, 128),
         "am": ((SEIZURES - 1) * frames, 2, 32),
         "fleet": (PATIENTS, SESSIONS, 256, 64, 64, 32, 256),
@@ -699,6 +991,7 @@ def main() -> int:
     res = train_and_detect("sparse_compim", cfg, records, calibrate=True)
     serve_fleet("sparse_compim", res, SESSIONS, STEADY_ROUNDS, profile=True)
     launches.stop("sparse_compim")
+    probes = {"sparse_compim": infer_probe("sparse_compim", res)}
     compare_with_plain("sparse_compim", res, COMPARE_SESSIONS)
 
     # phase 6: dense, the same codes
@@ -707,6 +1000,7 @@ def main() -> int:
                            calibrate=False)
     serve_fleet("dense", res, SESSIONS, STEADY_ROUNDS, profile=True)
     launches.stop("dense")
+    probes["dense"] = infer_probe("dense", res)
     compare_with_plain("dense", res, COMPARE_SESSIONS)
 
     # phase 7: sparse_naive, short
@@ -716,6 +1010,7 @@ def main() -> int:
     serve_fleet("sparse_naive", res, NAIVE_SESSIONS, NAIVE_STEADY_ROUNDS,
                 profile=False)
     launches.stop("sparse_naive")
+    probes["sparse_naive"] = infer_probe("sparse_naive", res)
     compare_with_plain("sparse_naive", res, NAIVE_SESSIONS)
 
     rows = []
@@ -727,7 +1022,14 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
                      "device_ms": r["device_ms"],
-                     **({"modes": r["modes"]} if "modes" in r else {})})
+                     **{k: r[k] for k in ("modes", "fused", "launch_split_us",
+                                            "fused_launch_split_us") if k in r}})
+        if name == "hdc_am":
+            rows[-1]["epilogue_launches"] = (launches.total("am_epilogue_sparse")
+                                             + launches.total("am_epilogue_dense"))
+        if name in ("hdc_encoder", "dense_hdc"):  # infer(codes[1:]) on each path
+            rows[-1]["infer"] = {p: v for p, v in probes.items()
+                                 if (p == "dense") == (name == "dense_hdc")}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

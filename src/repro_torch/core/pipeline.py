@@ -16,9 +16,11 @@
 
 The pipeline lives on one device (the card unless ``device="cpu"`` is
 passed to ``init``).  Encoding runs the encoder kernels and scoring the AM
-kernel on the card, their plain versions on the CPU; calibration runs the
-plain datapath, as in the reference.  Methods are pure: training and
-calibration return new pipelines.
+kernel on the card, their plain versions on the CPU; ``infer`` on the card
+is one launch, the encoder kernel with its AM epilogue, while ``scores``
+keeps the standalone AM kernel.  Calibration runs the plain datapath, as in
+the reference.  Methods are pure: training and calibration return new
+pipelines.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.core.online import OnlineAMState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dense_hdc.ops import dense_encode_frames_fused
+from repro_torch.kernels.dense_hdc.ops import encode_score_fused as dense_encode_score_fused
 from repro_torch.kernels.hdc_am.ops import am_search
-from repro_torch.kernels.hdc_encoder.ops import encode_frames_fused
+from repro_torch.kernels.hdc_encoder.ops import encode_frames_fused, encode_score_fused
 
 VARIANTS = ("sparse_naive", "sparse_compim", "dense")
 
@@ -83,6 +86,26 @@ def _encode_frames(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
     if cfg.variant == "sparse_naive" and codes.device.type == "cpu":
         return classifier.encode_frames(params, codes, cfg)
     return encode_frames_fused(params, codes, _fused_sparse_cfg(cfg))
+
+
+def _am_mode(cfg: HDCConfig) -> str:
+    return "hamming" if cfg.variant == "dense" else "overlap"
+
+
+def _encode_score(params, codes: torch.Tensor, cfg: HDCConfig,
+                  class_hvs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, channels) uint8 codes -> (scores (B, F, n_classes), predictions
+    (B, F)): the encoder kernels with their AM epilogue for CUDA tensors, as
+    ``_encode_frames`` routes the variants; for CPU tensors their plain
+    versions, and ``sparse_naive``'s own bit-domain datapath scored by the
+    AM's plain version."""
+    if cfg.variant == "dense":
+        return dense_encode_score_fused(params, codes, cfg, class_hvs)
+    if cfg.variant == "sparse_naive" and codes.device.type == "cpu":
+        s = am_search(classifier.encode_frames(params, codes, cfg), class_hvs,
+                      mode=_am_mode(cfg), dim=cfg.dim)
+        return s, am.am_predict(s)
+    return encode_score_fused(params, codes, _fused_sparse_cfg(cfg), class_hvs)
 
 
 def _frame_counts(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
@@ -220,16 +243,21 @@ class HDCPipeline:
         chvs = online.class_hvs_from_state(state, self.cfg)
         return replace(self, class_hvs=chvs, am_state=state)
 
-    def scores(self, frames: torch.Tensor) -> torch.Tensor:
-        """(..., W) frame HVs -> (..., n_classes) AM scores (overlap for the
-        sparse variants, D - Hamming distance for dense)."""
+    def _trained(self) -> torch.Tensor:
         if self.class_hvs is None:
             raise ValueError("pipeline has no class HVs; call train_one_shot first")
-        mode = "hamming" if self.cfg.variant == "dense" else "overlap"
-        return am_search(frames, self.class_hvs, mode=mode, dim=self.cfg.dim)
+        return self.class_hvs
+
+    def scores(self, frames: torch.Tensor) -> torch.Tensor:
+        """(..., W) frame HVs -> (..., n_classes) AM scores (overlap for the
+        sparse variants, D - Hamming distance for dense), through the
+        standalone AM kernel."""
+        return am_search(frames, self._trained(), mode=_am_mode(self.cfg),
+                         dim=self.cfg.dim)
 
     def infer(self, codes) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, T, channels) codes -> (scores (B, F, n_classes),
-        predictions (B, F))."""
-        s = self.scores(self.encode_frames(codes))
-        return s, am.am_predict(s)
+        predictions (B, F) int32, argmax with ties to the lower class): on
+        the card one launch of the encoder kernel with its AM epilogue."""
+        return _encode_score(self.params, self._codes(codes), self.cfg,
+                             self._trained())

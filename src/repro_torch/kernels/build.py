@@ -35,11 +35,13 @@ _L = ctypes.c_longlong
 # C signature of every exported launcher: (argtypes); all return cudaError_t
 SIGNATURES = {
     "lbp_codes_launch": [_P, _P, _L, _L, _L, _I, _P],
-    "hdc_encoder_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hdc_encoder_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _L, _L, _P, _P, _P, _I, _P],
     "hdc_am_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     "hdc_fleet_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
-    "dense_hdc_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "dense_hdc_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _P, _P,
+                         _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -128,5 +130,5 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on the tensor's
-    device."""
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    device (named by its index: no ``torch.device`` to parse)."""
+    return torch.cuda.current_stream(tensor.get_device()).cuda_stream

@@ -12,28 +12,45 @@ import torch
 
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True for CPU tensors (plain version), False for CUDA tensors
-    (kernel); raises for anything else."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    (kernel); raises for anything else.  Reads the tensors' flags, not their
+    ``device`` objects: this runs on every launch."""
+    if all(t.is_cpu for t in tensors):
         return True
-    if kinds == {"cuda"}:
-        if len({t.device for t in tensors}) != 1:
+    if all(t.is_cuda for t in tensors):
+        index = tensors[0].get_device()
+        if any(t.get_device() != index for t in tensors):
             raise ValueError("kernel operands lie on different CUDA devices")
         return False
-    raise ValueError(f"kernel operands on unsupported devices: {sorted(kinds)}")
+    kinds = sorted({t.device.type for t in tensors})
+    raise ValueError(f"kernel operands on unsupported devices: {kinds}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: tuple | None = None) -> None:
+            shape: tuple | None = None, contiguous: bool = True) -> None:
     """Check what a CUDA kernel takes: dtype, shape (None = any extent)
-    and contiguity."""
+    and contiguity (unless the kernel takes strides itself)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None:
+    # a shape given in full is one tuple comparison; extents left open
+    # (None) are compared one by one
+    if shape is not None and t.shape != shape:
         if t.ndim != len(shape) or any(
                 want is not None and got != want
                 for got, want in zip(t.shape, shape)):
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_rows(codes: torch.Tensor, window: int) -> tuple[int, int]:
+    """How the encoder kernels read a (B, T, C) code stream in place, cut to
+    whole frames of ``window`` cycles (``frame_view`` without the view):
+    (frames a row, bytes between rows).  Each row must be contiguous; the
+    rows may lie any distance apart (``codes[1:]``, ``codes[::2]``)."""
+    b, t, c = codes.shape
+    st = codes.stride()
+    if (st[2] != 1 and c > 1) or (st[1] != c and t > 1):
+        raise ValueError("codes: each batch row must be contiguous, got strides "
+                         f"{st} for shape {tuple(codes.shape)}")
+    return t // window, st[0] * codes.element_size()

@@ -49,7 +49,24 @@
 // staged; slabs that are not one contiguous range are copied word by word
 // with cp.async) and then the warps a block takes: any window, any W, C up
 // to 16384.
+//
+// Codes may be a strided batch (frames [r * fpr, (r + 1) * fpr) contiguous
+// from byte r * pitch), so frame_view of a (B, T, C) stream is read where it
+// lies, never copied.
+//
+// AM epilogue, hamming mode (replaces src/repro/kernels/hdc_am/kernel.py::
+// am_search_pallas and the argmax on the offline path): given (ncls, W)
+// class rows, the warp that packs a word adds that word's part of each
+// class's distance (am.cuh) into the tile's sums in shared memory.  A block
+// owns a whole frame while W <= its tile (the main path: W = 32, one tile);
+// it then writes the frame's scores and prediction itself.  Where a frame's
+// tiles lie in several blocks (D = 2048 and up), each block adds its sums
+// into the frame's row of a scratch buffer (ncls sums and a ticket, zeroed
+// by the launcher on the same stream), fences, and takes a ticket; the
+// block that takes the last one reads the whole sums and writes the scores
+// and the prediction.  The frame words are then written only if asked for.
 #include "common.cuh"
+#include "am.cuh"
 #include "bitslice.cuh"
 
 #define DENSE_MAX_WARPS 16
@@ -64,12 +81,23 @@ __host__ __device__ static inline size_t dense_head_words(int rows) {
   return ((size_t)4 + 32 * 32 + (size_t)rows * DENSE_SP + 3) & ~(size_t)3;
 }
 
+// The AM epilogue's operands: ncls class rows (or none), the outputs, and
+// the (n_frames, ncls + 1) scratch rows of frames split across tiles.
+struct DenseAM {
+  const uint32_t* cls;
+  int* scores;
+  int* preds;
+  int* scratch;
+  int ncls;
+};
+
 template <int NP, int RC>
 __global__ void __launch_bounds__(DENSE_MAX_WARPS * 32, 1)
 dense_hdc_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__ item,
                  const uint32_t* __restrict__ elec, uint32_t* __restrict__ out,
                  int window, int C, int K, int W, int C8, int wn, int flat,
-                 int codes16, uint32_t kmax4) {
+                 int codes16, uint32_t kmax4, long long fpr, long long pitch,
+                 const DenseAM am) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
@@ -82,6 +110,7 @@ dense_hdc_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__
   uint32_t* sp = sm + 4 + 32 * 32;                        // rows x DENSE_SP
   uint32_t* slabs = sm + dense_head_words(rows);          // 2 x slab
   uint8_t* ctile = (uint8_t*)(slabs + 2 * slab);          // 2 x rows x C8
+  int* scs = (int*)(ctile + 2 * rows * C8);               // ncls AM sums, one flag
 
   const long long n = blockIdx.x;
   // Warp v carries RC cycles from r0; half-warp h (lane = 16 h + p) takes
@@ -90,8 +119,10 @@ dense_hdc_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__
   const int h = lane >> 4, pw = 2 * (lane & 15);
   const int w0 = blockIdx.y * wn, wcount = min(wn, W - w0);
   const bool wa = pw < wcount, wb = pw + 1 < wcount;
-  const uint8_t* fc = codes + n * window * C;
+  const long long brow = n / fpr;
+  const uint8_t* fc = codes + brow * pitch + (n - brow * fpr) * window * C;
   for (int i = tid; i < 32 * 32; i += nt) tcnt[i] = 0;
+  for (int i = tid; i < am.ncls; i += nt) scs[i] = 0;
   for (int i = tid; i < 2 * rows * C8; i += nt) ctile[i] = 0;  // pad bytes stay 0
   if (tid == 0) {
     mbar_init(bars);
@@ -212,14 +243,37 @@ dense_hdc_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__
 
   for (int ww = warp; ww < wcount; ww += nwarps) {
     const unsigned packed = __ballot_sync(0xffffffffu, 2 * tcnt[ww * 32 + lane] > window);
-    if (lane == 0) out[n * W + w0 + ww] = packed;
+    if (lane == 0 && out) out[n * W + w0 + ww] = packed;
+    for (int c = lane; c < am.ncls; c += 32)
+      atomicAdd(&scs[c], am_word(packed, __ldg(am.cls + (long long)c * W + w0 + ww), AM_HAMMING));
   }
+  if (!am.ncls) return;
+  __syncthreads();  // the tile's sums are complete
+  const int dim = 32 * W;
+  if (gridDim.y == 1) {  // the block owns the frame
+    if (warp == 0)
+      am_emit(scs, am.ncls, AM_HAMMING, dim, am.scores + n * am.ncls, am.preds + n, lane);
+    return;
+  }
+  int* row = am.scratch + n * (am.ncls + 1);  // ncls sums, then the ticket
+  for (int c = tid; c < am.ncls; c += nt) atomicAdd(&row[c], scs[c]);
+  __threadfence();  // the sums are visible before the ticket is taken
+  __syncthreads();
+  int* last = scs + am.ncls;
+  if (tid == 0) *last = atomicAdd(&row[am.ncls], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int c = tid; c < am.ncls; c += nt) scs[c] = __ldcg(&row[c]);  // the frame's whole sums
+  __syncthreads();
+  if (warp == 0)
+    am_emit(scs, am.ncls, AM_HAMMING, dim, am.scores + n * am.ncls, am.preds + n, lane);
 }
 
 template <int NP, int RC>
 static int dense_launch(const void* codes, const void* item, const void* elec, void* out,
-                        long long n_frames, int window, int C, int K, int W,
-                        cudaStream_t stream) {
+                        long long n_frames, int window, int C, int K, int W, long long fpr,
+                        long long pitch, const DenseAM& am, cudaStream_t stream) {
   const int C8 = (C + 7) & ~7;
   // the widest word tile, then the most warps, that fit in shared memory
   size_t smem = 0;
@@ -227,7 +281,7 @@ static int dense_launch(const void* codes, const void* item, const void* elec, v
   for (; wn >= 1; wn = wn > 1 ? (wn + 1) / 2 : 0) {
     for (int v = DENSE_MAX_WARPS; v >= 1; --v) {
       smem = (dense_head_words(v * RC) + 2 * slab_words(K, wn + (wn & 1))) * 4 +
-             (size_t)2 * v * RC * C8;
+             (size_t)2 * v * RC * C8 + (size_t)(am.ncls + 1) * 4;
       if (smem <= HDC_MAX_SMEM) {
         warps = v;
         break;
@@ -238,24 +292,38 @@ static int dense_launch(const void* codes, const void* item, const void* elec, v
   if (!warps) return (int)cudaErrorInvalidValue;
   const int flat = wn == W && W % 2 == 0 && K <= 256 && (K * W) % 4 == 0 &&
                    ((uintptr_t)item & 15) == 0;
-  const int codes16 = C % 16 == 0 && ((uintptr_t)codes & 15) == 0;
+  const int codes16 = C % 16 == 0 && ((uintptr_t)codes & 15) == 0 && pitch % 16 == 0;
   cudaError_t err = hdc_set_smem(dense_hdc_kernel<NP, RC>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n_frames, (unsigned)((W + wn - 1) / wn));
+  if (am.ncls && grid.y > 1) {  // frames split across blocks sum in the scratch rows
+    err = cudaMemsetAsync(am.scratch, 0, (size_t)n_frames * (am.ncls + 1) * 4, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   dense_hdc_kernel<NP, RC><<<grid, warps * 32, smem, stream>>>(
       (const uint8_t*)codes, (const uint32_t*)item, (const uint32_t*)elec,
-      (uint32_t*)out, window, C, K, W, C8, wn, flat, codes16, codes_kmax4(K));
+      (uint32_t*)out, window, C, K, W, C8, wn, flat, codes16, codes_kmax4(K), fpr, pitch, am);
   return (int)cudaGetLastError();
 }
 
+// out: the frame words, or null when only the AM epilogue's results are
+// wanted; cls: ncls >= 1 class rows for the epilogue, or null (ncls 0), with
+// scratch: (n_frames, ncls + 1) int32 for frames split across tiles.
+// Codes: n_frames frames, fpr to a batch row, rows pitch bytes apart.
 HDC_EXPORT int dense_hdc_launch(const void* codes, const void* item,
                                 const void* elec, void* out, long long n_frames,
-                                int window, int C, int K, int W, void* stream) {
+                                int window, int C, int K, int W, long long fpr,
+                                long long pitch, const void* cls, void* scores, void* preds,
+                                void* scratch, int ncls, void* stream) {
   if (n_frames <= 0) return 0;
-  if (C <= 0 || C > DENSE_MAX_C || K <= 0 || W <= 0 || window <= 0)
+  if (C <= 0 || C > DENSE_MAX_C || K <= 0 || W <= 0 || window <= 0 || fpr <= 0 || ncls < 0 ||
+      (ncls > 0 && (!cls || !scores || !preds || !scratch)) || (!ncls && !out))
     return (int)cudaErrorInvalidValue;
+  const DenseAM am = {(const uint32_t*)cls, (int*)scores, (int*)preds, (int*)scratch, ncls};
   cudaStream_t st = (cudaStream_t)stream;
   if (bitslice_planes(C) == 8)
-    return dense_launch<8, 8>(codes, item, elec, out, n_frames, window, C, K, W, st);
-  return dense_launch<15, 4>(codes, item, elec, out, n_frames, window, C, K, W, st);
+    return dense_launch<8, 8>(codes, item, elec, out, n_frames, window, C, K, W, fpr, pitch,
+                              am, st);
+  return dense_launch<15, 4>(codes, item, elec, out, n_frames, window, C, K, W, fpr, pitch,
+                             am, st);
 }

@@ -63,7 +63,20 @@
 // Thinning thresholds <= 0 set every bit, those above C none.  Where the
 // table does not fit in shared memory, positions are bound from the
 // device's item and electrode tables.
+//
+// Codes may be a strided batch: frames [r * fpr, (r + 1) * fpr) lie
+// contiguously from byte r * pitch (frame_view of a (B, T, C) stream, whose
+// rows are T * C bytes apart however many whole frames they hold), so the
+// view is read where it lies and never copied.
+//
+// AM epilogue (replaces src/repro/kernels/hdc_am/kernel.py::am_search_pallas
+// and the argmax on the offline path): given (ncls, W) class rows, the warp
+// that packs word k of a frame also adds that word's overlap with each class
+// (am.cuh) into the frame's scores in shared memory; after one more barrier
+// a warp per frame writes its ncls scores and its prediction (argmax, ties
+// to the lower class).  The frame words are then written only if asked for.
 #include "common.cuh"
+#include "am.cuh"
 
 #define ENC_WARPS 8
 
@@ -71,8 +84,14 @@ struct EncArgs {
   const uint8_t* codes;
   const uint8_t* item;
   const uint8_t* elec;
-  uint32_t* out;
+  uint32_t* out;        // (n_frames, W) frame words, or null (scores only)
+  const uint32_t* cls;  // (ncls, W) class rows, or null: no AM epilogue
+  int* scores;          // (n_frames, ncls) int32
+  int* preds;           // (n_frames,) int32
   long long n_frames;
+  long long fpr;        // frames a batch row holds
+  long long pitch;      // bytes between batch rows of codes
+  int ncls;
   int window, C, K, S, L;
   int tthr;     // temporal threshold
   int sthr;     // spatial threshold (thinning), 1 for the OR mode
@@ -84,10 +103,20 @@ struct EncArgs {
 };
 
 // shared bytes: two count buffers of fb frames, each warp's np planes of 32
-// rows, the table
-__host__ __device__ static inline size_t enc_smem(int warps, int fb, int D, int np,
+// rows, fb frames' AM scores (ncls each, rounded to 16 bytes), the table
+__host__ __device__ static inline size_t enc_score_words(int fb, int ncls) {
+  return ((size_t)fb * ncls + 3) & ~(size_t)3;
+}
+__host__ __device__ static inline size_t enc_smem(int warps, int fb, int D, int np, int ncls,
                                                   size_t tab) {
-  return (size_t)2 * fb * D * 4 + (size_t)warps * np * D * 4 + ((tab + 15) & ~(size_t)15);
+  return (size_t)2 * fb * D * 4 + (size_t)warps * np * D * 4 + enc_score_words(fb, ncls) * 4 +
+         ((tab + 15) & ~(size_t)15);
+}
+
+// the codes of frame n: row n / fpr of the batch, frame n % fpr within it
+__device__ __forceinline__ const uint8_t* frame_codes(const EncArgs& a, long long n) {
+  const long long r = n / a.fpr;
+  return a.codes + r * a.pitch + (n - r * a.fpr) * a.window * a.C;
 }
 
 // 16 codes of one cycle from channel c0, clamped to K - 1
@@ -217,9 +246,11 @@ __global__ void __launch_bounds__(ENC_WARPS * 32) hdc_encoder_kernel(const EncAr
   const int Kc = a.K < 256 ? a.K : 256;
   int* counts = (int*)smem;                                 // 2 x fb x D
   uint32_t* planes = (uint32_t*)(counts + 2 * fb * D);      // warps x np x W x 32
-  uint8_t* tab = (uint8_t*)(planes + nwarps * a.np * D);    // C x Kc x S
+  int* sc = (int*)(planes + nwarps * a.np * D);             // fb x ncls AM sums
+  uint8_t* tab = (uint8_t*)(sc + enc_score_words(fb, a.ncls));  // C x Kc x S
 
   for (int i = tid; i < 2 * fb * D; i += nt) counts[i] = 0;
+  for (int i = tid; i < fb * a.ncls; i += nt) sc[i] = 0;
   if constexpr (!GT) build_table(a, tab, Kc);
   __syncthreads();
 
@@ -239,7 +270,7 @@ __global__ void __launch_bounds__(ENC_WARPS * 32) hdc_encoder_kernel(const EncAr
         if (a.spat > 0) {
           for (int k = 0; k < W; ++k) row[k * 32] = 0xffffffffu;
         } else if (a.spat < 0) {
-          encode_cycle<SG, GT, NPT>(a, tab, Kc, a.codes + (n * a.window + t) * a.C, pl, W);
+          encode_cycle<SG, GT, NPT>(a, tab, Kc, frame_codes(a, n) + (long long)t * a.C, pl, W);
         }
       }
       __syncwarp();
@@ -256,7 +287,22 @@ __global__ void __launch_bounds__(ENC_WARPS * 32) hdc_encoder_kernel(const EncAr
       *cp = 0;  // ready for the batch after next; the next batch counts in the other buffer
       const unsigned word = __ballot_sync(0xffffffffu, v >= a.tthr);
       const long long n = f0 + fi;
-      if (lane == 0 && n < a.n_frames) a.out[n * W + k] = word;
+      if (n < a.n_frames) {
+        if (lane == 0 && a.out) a.out[n * W + k] = word;
+        for (int c = lane; c < a.ncls; c += 32)
+          atomicAdd(&sc[fi * a.ncls + c],
+                    am_word(word, __ldg(a.cls + (long long)c * W + k), AM_OVERLAP));
+      }
+    }
+    if (a.ncls) {
+      __syncthreads();  // every word of the batch is scored
+      for (int fi = warp; fi < fb; fi += nwarps) {
+        const long long n = f0 + fi;
+        if (n >= a.n_frames) break;  // uniform over the warp
+        int* s = sc + fi * a.ncls;
+        am_emit(s, a.ncls, AM_OVERLAP, D, a.scores + n * a.ncls, a.preds + n, lane);
+        for (int c = lane; c < a.ncls; c += 32) s[c] = 0;  // each lane its own classes
+      }
     }
   }
 }
@@ -268,7 +314,7 @@ static int enc_launch(EncArgs a, size_t tab, cudaStream_t stream) {
   size_t smem = 0;
   for (int v = ENC_WARPS; v >= 1; v /= 2) {
     const int fb = v / G > 1 ? v / G : 1;
-    smem = enc_smem(v, fb, D, a.np, tab);
+    smem = enc_smem(v, fb, D, a.np, a.ncls, tab);
     if (smem <= HDC_MAX_SMEM) {
       warps = v;
       a.fb = fb;
@@ -301,18 +347,30 @@ static int enc_dispatch(const EncArgs& a, size_t tab, cudaStream_t stream) {
   return enc_launch<SG, GT, 0>(a, tab, stream);
 }
 
+// out: the frame words, or null when only the AM epilogue's results are
+// wanted; cls: ncls >= 1 class rows for the epilogue, or null (ncls 0).
+// Codes: n_frames frames, fpr to a batch row, rows pitch bytes apart.
 HDC_EXPORT int hdc_encoder_launch(const void* codes, const void* item, const void* elec,
                                   void* out, long long n_frames, int window, int C, int K,
                                   int S, int L, int temporal_threshold, int thinning,
-                                  int spatial_threshold, void* stream) {
+                                  int spatial_threshold, long long fpr, long long pitch,
+                                  const void* cls, void* scores, void* preds, int ncls,
+                                  void* stream) {
   if (n_frames <= 0) return 0;
-  if (window <= 0 || C <= 0 || K <= 0 || S <= 0 || L <= 0 || L > 256 || (S * L) % 32)
+  if (window <= 0 || C <= 0 || K <= 0 || S <= 0 || L <= 0 || L > 256 || (S * L) % 32 ||
+      fpr <= 0 || ncls < 0 || (ncls > 0 && (!cls || !scores || !preds)) || (!ncls && !out))
     return (int)cudaErrorInvalidValue;
   EncArgs a;
   a.codes = (const uint8_t*)codes;
   a.item = (const uint8_t*)item;
   a.elec = (const uint8_t*)elec;
   a.out = (uint32_t*)out;
+  a.cls = (const uint32_t*)cls;
+  a.scores = (int*)scores;
+  a.preds = (int*)preds;
+  a.ncls = ncls;
+  a.fpr = fpr;
+  a.pitch = pitch;
   a.n_frames = n_frames;
   a.window = window;
   a.C = C;
@@ -324,7 +382,7 @@ HDC_EXPORT int hdc_encoder_launch(const void* codes, const void* item, const voi
   a.np = 1;
   a.spat = -1;
   a.fb = 1;
-  a.codes16 = C % 16 == 0 && ((uintptr_t)codes & 15) == 0;
+  a.codes16 = C % 16 == 0 && ((uintptr_t)codes & 15) == 0 && pitch % 16 == 0;
   a.kmax4 = codes_kmax4(K);
   if (thinning) {
     if (spatial_threshold <= 0) {
@@ -339,7 +397,8 @@ HDC_EXPORT int hdc_encoder_launch(const void* codes, const void* item, const voi
   }
   cudaStream_t st = (cudaStream_t)stream;
   const size_t tab = (size_t)C * (K < 256 ? K : 256) * S;
-  if (enc_smem(1, 1, S * L, a.np, tab) > HDC_MAX_SMEM) return enc_dispatch<1, true>(a, 0, st);
+  if (enc_smem(1, 1, S * L, a.np, ncls, tab) > HDC_MAX_SMEM)
+    return enc_dispatch<1, true>(a, 0, st);
   if (S % 8 == 0) return enc_dispatch<8, false>(a, tab, st);
   return enc_dispatch<1, false>(a, tab, st);
 }

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import hv
+from repro_torch.core import am, hv
+from repro_torch.kernels.hdc_am.ref import am_search_ref
 
 
 def dense_encoder_ref(item_hvs: torch.Tensor, elec: torch.Tensor, *,
@@ -32,3 +33,16 @@ def dense_encoder_plain(codes: torch.Tensor, item: torch.Tensor,
     ch = torch.arange(channels, device=codes.device)
     hvs = item[ch, torch.clamp(codes.to(torch.int64), max=n_codes - 1)]
     return dense_encoder_ref(hvs, elec, window=window, dim=dim)
+
+
+def encode_score_plain(codes: torch.Tensor, item: torch.Tensor,
+                       elec: torch.Tensor, classes: torch.Tensor, *,
+                       window: int, dim: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function with its AM epilogue: ``dense_encoder_plain``,
+    then the D - Hamming scores against classes (n_classes, W) int32
+    (``am_search_ref``), then ``am_predict`` -> ((..., n_classes) int32,
+    (...) int32)."""
+    frames = dense_encoder_plain(codes, item, elec, window=window, dim=dim)
+    scores = am_search_ref(frames, classes, mode="hamming", dim=dim)
+    return scores, am.am_predict(scores)

@@ -4,6 +4,10 @@ for CPU tensors (port of ``repro.kernels.hdc_encoder.ops``).
 The TPU kernel takes the item positions already gathered; the CUDA kernel
 takes the frame-viewed codes and the CompIM table and gathers itself, so
 the (..., window, C, S) position tensor is never materialised on the card.
+The pipeline's entry points hand it the (B, T, C) code stream where it lies
+(``codes[1:]`` cut to whole frames is not copied), and with the class HVs
+it scores the frames itself (its AM epilogue): ``encode_score_fused`` is
+the offline pipeline's whole inference in one launch.
 """
 
 from __future__ import annotations
@@ -15,8 +19,41 @@ import torch
 from repro_torch.core.classifier import HDCConfig, frame_view
 from repro_torch.core.im import IMParams
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, use_plain
-from repro_torch.kernels.hdc_encoder.ref import encoder_plain
+from repro_torch.kernels.common import require, stream_rows, use_plain
+from repro_torch.kernels.hdc_encoder.ref import encode_score_plain, encoder_plain
+
+
+def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
+            scores, preds, *, window, segments, seg_len, temporal_threshold,
+            spatial_thinning, spatial_threshold) -> None:
+    """Check the tables and classes and launch over ``n_frames`` frames of
+    codes (uint8, checked by the caller), ``per_row`` to a batch row, rows
+    ``pitch`` bytes apart: frame words into ``out`` (or None), the AM
+    epilogue's scores and predictions when ``classes`` is given."""
+    c = codes.shape[-1]
+    require(item_pos, "item_pos", torch.uint8, (c, None, segments))
+    require(elec, "elec", torch.uint8, (c, segments))
+    dim = segments * seg_len
+    if dim % 32 or not 1 <= seg_len <= 256:
+        raise ValueError(f"D={dim} must be a multiple of 32 and seg_len="
+                         f"{seg_len} in [1, 256]")
+    n_cls = 0
+    if classes is not None:
+        n_cls = classes.shape[0]
+        require(classes, "class_hvs", torch.int32, (None, dim // 32))
+        if n_cls < 1:
+            raise ValueError("class_hvs: at least one class row")
+    err = build.lib().hdc_encoder_launch(
+        codes.data_ptr(), item_pos.data_ptr(), elec.data_ptr(),
+        None if out is None else out.data_ptr(), n_frames, window, c,
+        item_pos.shape[1], segments, seg_len, int(temporal_threshold),
+        int(bool(spatial_thinning)), int(spatial_threshold), per_row, pitch,
+        None if classes is None else classes.data_ptr(),
+        None if scores is None else scores.data_ptr(),
+        None if preds is None else preds.data_ptr(), n_cls,
+        build.stream_ptr(codes))
+    build.check(err, "hdc_encoder")
+    encoder.launches += 1
 
 
 def encoder(codes: torch.Tensor, item_pos: torch.Tensor, elec: torch.Tensor,
@@ -37,35 +74,71 @@ def encoder(codes: torch.Tensor, item_pos: torch.Tensor, elec: torch.Tensor,
         raise ValueError(f"codes {tuple(codes.shape)} do not match "
                          f"window={window}")
     require(codes, "codes", torch.uint8)
-    require(item_pos, "item_pos", torch.uint8, (c, None, segments))
-    require(elec, "elec", torch.uint8, (c, segments))
-    dim = segments * seg_len
-    if dim % 32 or not 1 <= seg_len <= 256:
-        raise ValueError(f"D={dim} must be a multiple of 32 and seg_len="
-                         f"{seg_len} in [1, 256]")
-    out = torch.empty((*lead, dim // 32), dtype=torch.int32, device=codes.device)
-    if out.numel() == 0:
-        return out
-    err = build.lib().hdc_encoder_launch(
-        codes.data_ptr(), item_pos.data_ptr(), elec.data_ptr(), out.data_ptr(),
-        math.prod(lead), window, c, item_pos.shape[1], segments, seg_len,
-        int(temporal_threshold), int(bool(spatial_thinning)),
-        int(spatial_threshold), build.stream_ptr(codes))
-    build.check(err, "hdc_encoder")
-    encoder.launches += 1
+    out = torch.empty((*lead, segments * seg_len // 32), dtype=torch.int32,
+                      device=codes.device)
+    if out.numel():
+        n = math.prod(lead)
+        _launch(codes, n, n, n * window * c, item_pos, elec, out, None, None,
+                None, **kw)
     return out
 
 
 encoder.launches = 0
 
 
+def _cfg_kw(cfg: HDCConfig) -> dict:
+    return dict(window=cfg.window, segments=cfg.segments, seg_len=cfg.seg_len,
+                temporal_threshold=cfg.temporal_threshold,
+                spatial_thinning=cfg.spatial_thinning,
+                spatial_threshold=cfg.spatial_threshold)
+
+
+def _stream_launch(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
+                   class_hvs: torch.Tensor | None):
+    """The kernel over a (B, T, C) stream read in place: frame HVs
+    (B, F, W), or with class HVs (scores (B, F, n_classes), predictions
+    (B, F))."""
+    require(codes, "codes", torch.uint8, contiguous=False)
+    per_row, pitch = stream_rows(codes, cfg.window)
+    lead = (codes.shape[0], per_row)
+    dev = codes.device
+    if class_hvs is None:
+        out = torch.empty((*lead, cfg.words), dtype=torch.int32, device=dev)
+        res = out
+        scores = preds = None
+    else:
+        out = None
+        scores = torch.empty((*lead, class_hvs.shape[0]), dtype=torch.int32, device=dev)
+        preds = torch.empty(lead, dtype=torch.int32, device=dev)
+        res = scores, preds
+    if lead[0] * per_row:
+        _launch(codes, lead[0] * per_row, per_row, pitch, params.item_pos,
+                params.elec_pos, out, class_hvs, scores, preds, **_cfg_kw(cfg))
+        if class_hvs is not None:
+            encode_score_fused.launches += 1
+    return res
+
+
 def encode_frames_fused(params: IMParams, codes: torch.Tensor,
                         cfg: HDCConfig) -> torch.Tensor:
     """(B, T, C) uint8 codes -> (B, F, W) int32 frame HVs through the
     encoder kernel, which gathers the CompIM positions itself."""
-    return encoder(frame_view(codes, cfg.window).contiguous(), params.item_pos,
-                   params.elec_pos, window=cfg.window, segments=cfg.segments,
-                   seg_len=cfg.seg_len,
-                   temporal_threshold=cfg.temporal_threshold,
-                   spatial_thinning=cfg.spatial_thinning,
-                   spatial_threshold=cfg.spatial_threshold)
+    if use_plain(codes, params.item_pos, params.elec_pos):
+        return encoder_plain(frame_view(codes, cfg.window), params.item_pos,
+                             params.elec_pos, **_cfg_kw(cfg))
+    return _stream_launch(params, codes, cfg, None)
+
+
+def encode_score_fused(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
+                       class_hvs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, C) uint8 codes, (n_classes, W) int32 class HVs -> (overlap
+    scores (B, F, n_classes) int32, predictions (B, F) int32): the encoder
+    kernel with its AM epilogue, one launch; the frame HVs are not
+    written."""
+    if use_plain(codes, params.item_pos, params.elec_pos, class_hvs):
+        return encode_score_plain(frame_view(codes, cfg.window), params.item_pos,
+                                  params.elec_pos, class_hvs, **_cfg_kw(cfg))
+    return _stream_launch(params, codes, cfg, class_hvs)
+
+
+encode_score_fused.launches = 0

@@ -121,3 +121,32 @@ def test_wrappers_dispatch_on_tensor_device_only():
                 segments=8, seg_len=32, temporal_threshold=1)
     with pytest.raises(ValueError, match="unsupported devices"):
         dense_encoder(codes.to("meta"), table, table[:, 0], window=32, dim=256)
+
+
+def test_fused_wrappers_dispatch_on_tensor_device_only():
+    """The encoders with their AM epilogue (``encode_score_fused``): CPU
+    tensors take the plain versions without counting a launch; tensors on
+    another device are refused, never moved."""
+    from repro_torch.core.im import DenseIMParams, IMParams
+    from repro_torch.kernels.dense_hdc import ops as dense_ops
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+
+    codes = torch.zeros(2, 70, 4, dtype=torch.uint8)
+    cls = torch.zeros(3, 8, dtype=torch.int32)
+    sparse = (enc_ops, IMParams(torch.zeros(4, 64, 8, dtype=torch.uint8),
+                                torch.zeros(4, 8, dtype=torch.uint8), 256, 8),
+              HDCConfig(dim=256, channels=4, window=32))
+    dense = (dense_ops, DenseIMParams(torch.zeros(4, 64, 8, dtype=torch.int32),
+                                      torch.zeros(4, 8, dtype=torch.int32), 256),
+             HDCConfig(dim=256, channels=4, window=32, variant="dense"))
+    for ops, params, cfg in (sparse, dense):
+        before = (ops.encode_score_fused.launches, encoder.launches, dense_encoder.launches)
+        scores, preds = ops.encode_score_fused(params, codes, cfg, cls)
+        assert scores.shape == (2, 2, 3) and preds.shape == (2, 2)
+        assert not preds.any()       # all-zero frames and classes tie at class 0
+        assert (ops.encode_score_fused.launches, encoder.launches,
+                dense_encoder.launches) == before
+        with pytest.raises(ValueError, match="unsupported devices"):
+            ops.encode_score_fused(params, codes.to("meta"), cfg, cls)
+        with pytest.raises(ValueError, match="unsupported devices"):
+            ops.encode_score_fused(params, codes, cfg, cls.to("meta"))

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import am as j_am
 from repro.core import hv as j_hv
 from repro.core.classifier import HDCConfig as JConfig
 from repro.core import classifier as j_classifier
@@ -25,6 +26,7 @@ from repro.kernels.dense_hdc.kernel import dense_encoder_pallas
 from repro.kernels.dense_hdc.ops import dense_encode_frames_fused as j_dense_fused
 from repro.kernels.dense_hdc.ref import dense_encoder_ref as j_dense_ref
 from repro.kernels.hdc_am.kernel import am_search_pallas
+from repro.kernels.hdc_am.ops import am_search as j_am_search
 from repro.kernels.hdc_am.ref import am_search_ref as j_am_ref
 from repro.kernels.hdc_encoder.kernel import encoder_pallas
 from repro.kernels.hdc_encoder.ops import encode_frames_fused as j_encode_fused
@@ -35,11 +37,12 @@ from repro.kernels.hdc_fleet.ref import emission_masks as j_emission_masks
 from repro.kernels.lbp.kernel import lbp_pallas
 from repro.kernels.lbp.ref import lbp_ref as j_lbp_ref
 from repro.serve import dispatch as j_dispatch
-from repro_torch.core import hv
+from repro_torch.core import am, hv
 from repro_torch.core.classifier import HDCConfig
 from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.kernels.dense_hdc import ops as dense_ops
 from repro_torch.kernels.dense_hdc import ref as dense_ref
+from repro_torch.kernels.common import stream_rows
 from repro_torch.kernels.hdc_am import ops as am_ops
 from repro_torch.kernels.hdc_encoder import ops as enc_ops
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
@@ -404,7 +407,8 @@ def test_lbp_mirror_matches_plain(b, t, c, bits):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,c,words", [(1, 2, 32), (7, 2, 32), (300, 4, 32),
-                                       (5, 8, 3)])
+                                       (5, 8, 3), (9, 3, 32), (6, 3, 64),
+                                       (40, 33, 64)])
 @pytest.mark.parametrize("mode", ["overlap", "hamming"])
 def test_am_plain_matches_pallas_and_ref(b, c, words, mode):
     rng = np.random.default_rng(b + c)
@@ -767,3 +771,287 @@ def test_bitsliced_counter_matches_dense_plain(c, window):
     want = dense_ref.dense_encoder_plain(torch.from_numpy(codes), _t(table),
                                          _t(elec), window=window, dim=32 * w)
     np.testing.assert_array_equal(frames, hv.to_u32(want))
+
+
+# ---------------------------------------------------------------------------
+# the encoders' AM epilogue (encode_score_fused) and the strided frame view
+# ---------------------------------------------------------------------------
+
+def _classes(rng, n_cls: int, words: int, tied: bool) -> np.ndarray:
+    """Class rows; ``tied``: one row repeated, so every class scores the
+    same and the prediction must be class 0."""
+    rows = _words(rng, 1 if tied else n_cls, words)
+    return np.repeat(rows, n_cls, axis=0) if tied else rows
+
+
+def _j_score(frames, classes: np.ndarray, mode: str, dim: int):
+    """The reference's AM on its frame HVs: the Pallas kernel in interpret
+    mode, then ``am_predict``."""
+    s = j_am_search(frames, jnp.asarray(classes), mode=mode, dim=dim, use_kernel=True)
+    return np.asarray(s), np.asarray(j_am.am_predict(s))
+
+
+# (n_classes, dim, window, tied, thinning): the reference's encoder runs the
+# Pallas kernel (interpret mode) where window % 32 == 0 and its jnp oracle
+# elsewhere (the Pallas kernel drops window % 32 cycles, ROADMAP queue 3)
+_SCORE_CASES = [(1, 1024, 32, False, False), (2, 1024, 64, False, True),
+                (3, 2048, 32, False, False), (3, 1024, 40, False, True),
+                (2, 2048, 40, True, False), (3, 1024, 32, True, True)]
+
+
+@pytest.mark.parametrize("n_cls,dim,window,tied,thinning", _SCORE_CASES)
+def test_encode_score_fused_plain_matches_reference(n_cls, dim, window, tied, thinning):
+    """``encode_score_fused`` (plain on the CPU) against the reference's
+    ``am_search(encode_frames_fused(...))`` and ``am_predict`` on a strided
+    batch slice ``codes[1:]`` whose T is no multiple of the window."""
+    c = 6
+    cfg_kw = dict(dim=dim, segments=8, channels=c, window=window,
+                  spatial_thinning=thinning, spatial_threshold=2,
+                  temporal_threshold=max(1, window // 8))
+    jcfg, tcfg = JConfig(**cfg_kw), HDCConfig(**cfg_kw)
+    rng = np.random.default_rng(n_cls * 1000 + dim + window)
+    item = rng.integers(0, dim // 8, (c, 64, 8), dtype=np.uint8)
+    elec = rng.integers(0, dim // 8, (c, 8), dtype=np.uint8)
+    codes = rng.integers(0, 72, (3, 3 * window + 5, c), dtype=np.uint8)
+    cls = _classes(rng, n_cls, dim // 32, tied)
+    tparams = IMParams(torch.from_numpy(item), torch.from_numpy(elec), dim, 8)
+    got_s, got_p = enc_ops.encode_score_fused(tparams, torch.from_numpy(codes)[1:],
+                                              tcfg, _t(cls))
+    jparams = JIMParams(jnp.asarray(item), jnp.asarray(elec), dim, 8)
+    frames = _jit(j_encode_fused, cfg=jcfg, use_kernel=window % 32 == 0)(
+        jparams, jnp.asarray(codes[1:]))
+    want_s, want_p = _j_score(frames, cls, "overlap", dim)
+    assert got_s.shape == (2, 3, n_cls) and got_p.dtype == torch.int32
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    if tied:
+        assert not got_p.any()
+    assert enc_ops.encode_score_fused.launches == 0   # CPU tensors never launch
+
+
+# (n_classes, dim, window, tied): the reference's Pallas dense kernel where
+# window % 16 == 0, its jnp oracle elsewhere (ROADMAP queue 3)
+_DENSE_SCORE_CASES = [(1, 1024, 32, False), (3, 2048, 16, False),
+                      (2, 1024, 40, False), (3, 1024, 32, True),
+                      (2, 2048, 24, True)]
+
+
+@pytest.mark.parametrize("n_cls,dim,window,tied", _DENSE_SCORE_CASES)
+def test_dense_encode_score_fused_plain_matches_reference(n_cls, dim, window, tied):
+    """The dense ``encode_score_fused`` (plain on the CPU) against the
+    reference's hamming ``am_search(dense_encode_frames_fused(...))`` and
+    ``am_predict`` on a strided ``codes[1:]``."""
+    c, w = 5, dim // 32
+    kw = dict(dim=dim, channels=c, window=window, variant="dense")
+    jcfg, tcfg = JConfig(**kw), HDCConfig(**kw)
+    rng = np.random.default_rng(n_cls * 100 + dim + window)
+    table, elec = _words(rng, c, 64, w), _words(rng, c, w)
+    codes = rng.integers(0, 70, (3, 3 * window + 7, c), dtype=np.uint8)
+    cls = _classes(rng, n_cls, w, tied)
+    got_s, got_p = dense_ops.encode_score_fused(
+        DenseIMParams(_t(table), _t(elec), dim), torch.from_numpy(codes)[1:], tcfg, _t(cls))
+    frames = _jit(j_dense_fused, cfg=jcfg, use_kernel=window % 16 == 0)(
+        JDenseIMParams(jnp.asarray(table), jnp.asarray(elec), dim), jnp.asarray(codes[1:]))
+    want_s, want_p = _j_score(frames, cls, "hamming", dim)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    if tied:
+        assert not got_p.any()
+    assert dense_ops.encode_score_fused.launches == 0
+
+
+def test_stream_rows_reads_strided_batches_in_place():
+    """On the card the encoders read a (B, T, C) stream where it lies, cut
+    to whole frames: each batch row contiguous, the rows any distance apart
+    (codes[1:], codes[1::2]); a row that is not contiguous raises."""
+    codes = torch.zeros(4, 1000, 64, dtype=torch.uint8)
+    assert stream_rows(codes, 256) == (3, 1000 * 64)
+    assert stream_rows(codes[1:], 256) == (3, 1000 * 64)
+    assert stream_rows(codes[1::2], 300) == (3, 2 * 1000 * 64)
+    assert stream_rows(codes[:, :512], 256) == (2, 1000 * 64)
+    assert stream_rows(torch.zeros(5, 32, 1, dtype=torch.uint8)[:, ::1], 32) == (1, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_rows(torch.zeros(5, 4, 32, dtype=torch.uint8).transpose(1, 2), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_rows(codes[:, :, ::2], 256)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each launcher's arguments
+    and reports success (there is no card here)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Every kernel wrapper takes the kernel path for CPU tensors and the
+    launches are recorded instead of run."""
+    from repro_torch.kernels import build
+    rec = _Recorder()
+    for mod in (enc_ops, dense_ops, am_ops):
+        monkeypatch.setattr(mod, "use_plain", lambda *t: False)
+    monkeypatch.setattr(build, "lib", lambda: rec)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    for fn in (enc_ops.encoder, enc_ops.encode_score_fused, dense_ops.dense_encoder,
+               dense_ops.encode_score_fused, am_ops.am_search):
+        monkeypatch.setattr(fn, "launches", 0)
+    return rec
+
+
+@pytest.mark.parametrize("variant", ["sparse_compim", "dense"])
+def test_encode_score_fused_hands_the_strided_view_to_one_launch(fake_card, variant):
+    """On the card the fused wrapper launches the encoder once with the
+    class rows and no frame-word output, on the frame view where it lies:
+    the codes pointer is codes[1:]'s, with 3 frames a row and rows T * C
+    bytes apart (no copy)."""
+    c, window, t = 6, 32, 3 * 32 + 5
+    cfg = HDCConfig(dim=256, segments=8, channels=c, window=window,
+                    temporal_threshold=5, variant=variant)
+    rng = np.random.default_rng(5)
+    codes = torch.from_numpy(rng.integers(0, 64, (3, t, c), dtype=np.uint8))
+    cls = _t(_words(rng, 3, 8))
+    if variant == "dense":
+        params = DenseIMParams(_t(_words(rng, c, 64, 8)), _t(_words(rng, c, 8)), 256)
+        ops, launcher = dense_ops, "dense_hdc_launch"
+    else:
+        params = IMParams(torch.from_numpy(rng.integers(0, 32, (c, 64, 8), dtype=np.uint8)),
+                          torch.from_numpy(rng.integers(0, 32, (c, 8), dtype=np.uint8)),
+                          256, 8)
+        ops, launcher = enc_ops, "hdc_encoder_launch"
+    scores, preds = ops.encode_score_fused(params, codes[1:], cfg, cls)
+    assert scores.shape == (2, 3, 3) and preds.shape == (2, 3)
+    ((name, args),) = fake_card.calls
+    assert name == launcher and args[3] is None          # no frame words
+    assert args[0] == codes[1:].data_ptr() == codes.data_ptr() + t * c
+    if variant == "dense":
+        assert args[4:11] == (6, window, c, 64, 8, 3, t * c)
+        assert args[11] == cls.data_ptr() and args[15] == 3 and args[14] is not None
+    else:
+        assert args[4] == 6 and args[13:15] == (3, t * c)
+        assert args[15] == cls.data_ptr() and args[18] == 3
+    assert (ops.encode_score_fused.launches, am_ops.am_search.launches) == (1, 0)
+    assert (enc_ops.encoder if variant != "dense" else dense_ops.dense_encoder).launches == 1
+
+
+@pytest.mark.parametrize("variant", ["sparse_compim", "dense"])
+def test_encode_score_fused_refuses_what_the_kernel_cannot_take(fake_card, variant):
+    """A CUDA operand the fused kernel cannot take raises; nothing falls
+    back to the unfused chain."""
+    c = 4
+    cfg = HDCConfig(dim=256, segments=8, channels=c, window=32, variant=variant)
+    codes = torch.zeros(2, 64, c, dtype=torch.uint8)
+    if variant == "dense":
+        params = DenseIMParams(torch.zeros(c, 64, 8, dtype=torch.int32),
+                               torch.zeros(c, 8, dtype=torch.int32), 256)
+        ops = dense_ops
+    else:
+        params = IMParams(torch.zeros(c, 64, 8, dtype=torch.uint8),
+                          torch.zeros(c, 8, dtype=torch.uint8), 256, 8)
+        ops = enc_ops
+    with pytest.raises(TypeError, match="class_hvs"):
+        ops.encode_score_fused(params, codes, cfg, torch.zeros(2, 8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="class_hvs"):
+        ops.encode_score_fused(params, codes, cfg, torch.zeros(2, 7, dtype=torch.int32))
+    with pytest.raises(ValueError, match="class_hvs"):
+        ops.encode_score_fused(params, codes, cfg, torch.zeros(0, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.encode_score_fused(params, codes.transpose(0, 1).contiguous().transpose(0, 1),
+                               cfg, torch.zeros(2, 8, dtype=torch.int32))
+    assert not fake_card.calls
+
+
+# ---------------------------------------------------------------------------
+# numpy mirrors of csrc/am.cuh and csrc/hdc_am.cu
+# ---------------------------------------------------------------------------
+
+def _am_emit_mirror(scores: np.ndarray) -> int:
+    """am_emit's argmax: lane l keeps the best (score, class) of classes l,
+    l + 32, ...; five xor-shuffle stages keep the better pair (a larger
+    score, or an equal one at a lower class)."""
+    lanes = [(-2**31, 2**31 - 1)] * 32
+
+    def better(a, b):
+        return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+    for c, v in enumerate(scores):
+        if better((int(v), c), lanes[c % 32]):
+            lanes[c % 32] = (int(v), c)
+    for s in (16, 8, 4, 2, 1):
+        lanes = [lanes[i ^ s] if better(lanes[i ^ s], lanes[i]) else lanes[i]
+                 for i in range(32)]
+    assert len({p for p in lanes}) == 1   # every lane ends on the same pair
+    return lanes[0][1]
+
+
+@pytest.mark.parametrize("n_cls", [1, 2, 3, 32, 33, 100])
+def test_am_emit_argmax_mirror_matches_am_predict(n_cls):
+    """Ties (scores drawn from a few values) go to the lower class, as
+    ``am_predict`` (torch.argmax) and the reference's ``jax.lax.argmax``."""
+    rng = np.random.default_rng(n_cls)
+    scores = rng.integers(0, 3, (40, n_cls)).astype(np.int32)
+    scores[0] = 7
+    got = np.asarray([_am_emit_mirror(row) for row in scores])
+    np.testing.assert_array_equal(got, am.am_predict(torch.from_numpy(scores)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(j_am.am_predict(jnp.asarray(scores))))
+
+
+def _hdc_am_mirror(q: np.ndarray, cls: np.ndarray, mode: str, dim: int,
+                   threads: int = 256, ct: int = 8, stage_words: int = 12288,
+                   max_blocks: int = 4096) -> np.ndarray:
+    """hdc_am.cu's work split: R lanes a row (32, or the power of two >= W),
+    32 / R rows a warp, a grid-stride loop over row groups, class chunks of
+    what fits the staging buffer, AM_CT classes a pass; lane gl of a row's
+    group stores class c where c % R == gl.  Each output is written once."""
+    b, w = q.shape
+    c = cls.shape[0]
+    r = 1
+    while r < w and r < 32:
+        r *= 2
+    g = 32 // r
+    warps = threads // 32
+    grid = min(-(-b // (warps * g)), max_blocks)
+    cc = min(stage_words // w, c) if w <= stage_words else c
+    out = np.full((b, c), -1, np.int64)
+    pc = np.vectorize(lambda x: bin(int(x)).count("1"))
+    for blk in range(grid):
+        for c0 in range(0, c, cc):
+            ncc = min(cc, c - c0)
+            for warp in range(warps):
+                rb = (blk * warps + warp) * g
+                while rb < b:
+                    for t0 in range(0, ncc, ct):
+                        for j in range(min(ct, ncc - t0)):
+                            k = c0 + t0 + j
+                            for grp in range(g):
+                                row = rb + grp
+                                if row >= b:
+                                    continue
+                                parts = [q[row, wi] & cls[k, wi] if mode == "overlap"
+                                         else q[row, wi] ^ cls[k, wi]
+                                         for gl in range(r) for wi in range(gl, w, r)]
+                                total = int(pc(np.asarray(parts, np.uint32)).sum())
+                                assert out[row, k] == -1
+                                out[row, k] = total if mode == "overlap" else dim - total
+                    rb += grid * warps * g
+    return out
+
+
+@pytest.mark.parametrize("b,c,w", [(13, 3, 1), (9, 2, 3), (17, 9, 5), (5, 33, 32),
+                                   (4, 2, 70), (3, 5, 13000)])
+@pytest.mark.parametrize("mode", ["overlap", "hamming"])
+def test_hdc_am_mirror_matches_plain(b, c, w, mode):
+    """Every (row, class) of the standalone kernel's split is computed once
+    and equals the plain version, for groups of 1, 4, 8 and 32 lanes, class
+    tiles of 8, and rows too wide to stage (W = 13000)."""
+    rng = np.random.default_rng(b * c + w)
+    q, cls = _words(rng, b, w), _words(rng, c, w)
+    want = am_ops.am_search(_t(q), _t(cls), mode=mode, dim=w * 32).numpy()
+    np.testing.assert_array_equal(_hdc_am_mirror(q, cls, mode, w * 32), want)

@@ -260,3 +260,94 @@ def test_convert_checks_fields_and_shapes():
         convert.pipeline_from_arrays(fields, np.zeros((4, 64, 8), np.uint8),
                                      np.zeros((4, 8), np.uint8), device="cpu",
                                      am_counts=np.zeros((2, 256), np.int32))
+
+
+# ---------------------------------------------------------------------------
+# infer through the encoders' AM epilogue (encode_score_fused)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant,dim,window,n_classes,tied", [
+    ("sparse_compim", 1024, 32, 3, False),
+    ("sparse_compim", 2048, 40, 1, False),
+    ("sparse_compim", 1024, 64, 2, True),
+    ("sparse_naive", 1024, 32, 3, False),
+    ("dense", 2048, 32, 3, False),
+    ("dense", 1024, 40, 2, True),
+])
+def test_fused_infer_matches_reference_pipeline(variant, dim, window, n_classes, tied):
+    """``HDCPipeline.infer`` (on the CPU the fused wrappers' plain versions;
+    ``sparse_naive`` its bit-domain datapath) against the reference's
+    ``HDCPipeline.infer`` on a strided batch ``codes[1:]`` whose T is no
+    multiple of the window: the reference runs its Pallas kernels where they
+    cover every cycle (window % 32 == 0 sparse, % 16 dense; ROADMAP queue
+    3) and its jnp path elsewhere.  ``tied``: every class row the same, so
+    every prediction is class 0.  ``scores(encode_frames(x))``, the
+    standalone AM path, gives the same scores."""
+    c = 5
+    pallas = window % (16 if variant == "dense" else 32) == 0
+    kw = dict(dim=dim, segments=8, channels=c, window=window, variant=variant,
+              n_classes=n_classes, spatial_threshold=2,
+              temporal_threshold=max(1, window // 8))
+    jp = JPipeline.init(jax.random.PRNGKey(dim + window),
+                        JConfig(backend="pallas" if pallas else "jnp", **kw))
+    rng = np.random.default_rng(dim + window + n_classes)
+    codes = rng.integers(0, 64, (1, 2 * n_classes * window, c), dtype=np.uint8)
+    labels = (np.arange(2 * n_classes) % n_classes)[None]
+    jp = jp.train_one_shot(jnp.asarray(codes), jnp.asarray(labels))
+    if tied:
+        jp = dataclasses.replace(
+            jp, class_hvs=jnp.broadcast_to(jp.class_hvs[:1], jp.class_hvs.shape))
+    tp = _transfer(jp)
+    test = rng.integers(0, 70, (3, 4 * window + 7, c), dtype=np.uint8)
+    js, jpred = jp.infer(jnp.asarray(test[1:]))
+    ts, tpred = tp.infer(torch.from_numpy(test)[1:])
+    assert ts.shape == (2, 4, n_classes) and tpred.dtype == torch.int32
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tpred.numpy(), np.asarray(jpred))
+    if tied:
+        assert not tpred.any()
+    np.testing.assert_array_equal(
+        tp.scores(tp.encode_frames(torch.from_numpy(test)[1:])).numpy(), ts.numpy())
+
+
+@pytest.mark.parametrize("variant", ["sparse_compim", "dense"])
+def test_infer_on_the_card_is_one_launch(monkeypatch, variant):
+    """With the kernel path taken (CPU tensors stand in for the card's and
+    the launches are recorded, not run), ``infer`` issues one launcher call,
+    the encoder with its AM epilogue and the class rows, and no standalone
+    AM launch; ``scores`` keeps the standalone AM kernel.  (``sparse_naive``
+    keeps its bit-domain plain datapath for CPU codes; ``chip_smoke.py``
+    counts its one kernel on the card.)"""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dense_hdc import ops as dense_ops
+    from repro_torch.kernels.hdc_am import ops as am_ops
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    for mod in (enc_ops, dense_ops, am_ops):
+        monkeypatch.setattr(mod, "use_plain", lambda *t: False)
+    monkeypatch.setattr(build, "lib", lambda: Lib())
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    for fn in (enc_ops.encoder, enc_ops.encode_score_fused, dense_ops.dense_encoder,
+               dense_ops.encode_score_fused, am_ops.am_search):
+        monkeypatch.setattr(fn, "launches", 0)    # restored after the test
+    _, tp = _trained_pair(variant)
+    codes = torch.from_numpy(np.zeros((2, 3 * 32 + 5, 4), np.uint8))
+    scores, preds = tp.infer(codes)
+    assert scores.shape == (2, 3, 2) and preds.shape == (2, 3)
+    ((name, args),) = calls
+    if variant == "dense":
+        assert name == "dense_hdc_launch" and args[11] == tp.class_hvs.data_ptr()
+    else:
+        assert name == "hdc_encoder_launch" and args[15] == tp.class_hvs.data_ptr()
+        assert args[11:13] == (0, 2) and args[3] is None   # OR mode; no frame words
+    fused = enc_ops if variant != "dense" else dense_ops
+    assert (fused.encode_score_fused.launches, am_ops.am_search.launches) == (1, 0)
+    tp.scores(torch.zeros(5, 8, dtype=torch.int32))
+    assert [c[0] for c in calls[1:]] == ["hdc_am_launch"]
+    assert am_ops.am_search.launches == 1
