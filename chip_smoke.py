@@ -39,10 +39,26 @@ Phases (one line each, any failure exits non-zero):
    through ``dense_hdc`` (one-shot training; detection with its AM
    epilogue in ``hamming`` mode), then a 1024-session dense fleet in the same rounds (fleet
    kernel in ``majority`` mode), held against the CPU plain path as in 5;
+   The dense path also runs ``fit_iterative`` for patient 0 and two
+   ``adapt`` rounds of a 64-session dense fleet, each against the CPU;
 7. the ``sparse_naive`` path, short: 2 patients on 2048-cycle slices
    (calibration, training, inference through the encoder kernel with
    thinning forced on) and a 64-session fleet (``thin`` mode), all held
-   against the CPU's bit-domain plain path.
+   against the CPU's bit-domain plain path;
+8. online adaptation, sessions, the batched engine and checkpoints on the
+   ``sparse_compim`` bank of phase 4: ``fit_iterative`` (5 epochs: the
+   encoder kernel once, the standalone AM kernel each epoch) for every
+   patient, detection before and after, patient 0's fit against the CPU and
+   ``epochs=0`` against ``train_one_shot``; a 1024-session adaptive fleet
+   over the retrained bank (4 rounds of 256 cycles and a ragged round, each
+   followed by ``adapt`` with each session's true label, ``-1`` for every
+   fourth), its first 32 sessions against a CPU fleet and 4 against
+   ``SeizureSession`` loops on the card, saved mid-stream and restored into
+   a fresh fleet that continues equal (another session count is refused);
+   sessions on the card (the fleet kernel at S = 1) on ragged chunks
+   against a fleet, one snapshot resumed on the CPU; and one
+   ``ServingEngine.serve`` of 16 held-out records (the fleet kernel, one
+   frame a session) against each patient's ``infer``.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -81,6 +97,15 @@ NAIVE_PATIENTS = 2
 NAIVE_SESSIONS = 64
 NAIVE_CYCLES = 2048
 NAIVE_STEADY_ROUNDS = 2
+# phase 8: online adaptation, sessions, the engine, checkpoints
+ONLINE_EPOCHS = 5
+ADAPT_ROUNDS = 4        # steady rounds of 256 cycles, each followed by adapt
+LOOP_SESSIONS = 4       # fleet sessions replayed as SeizureSession loops,
+                        # and the sessions run on ragged chunks
+DENSE_ADAPT_SESSIONS = 64
+DENSE_ADAPT_ROUNDS = 2
+SESSION_PUSHES = 20     # 256-cycle pushes timed on one session
+SERVE_REPS = 5
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # 32-bit rate outside the tensor cores, used for the integer/bit operations
@@ -107,6 +132,7 @@ PATH_KERNELS = {
     "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
     "dense": ("dense_hdc", "hdc_am", "hdc_fleet", "am_epilogue_dense"),
     "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
+    "online": ("hdc_encoder", "hdc_am", "hdc_fleet"),
 }
 
 
@@ -881,34 +907,50 @@ def infer_probe(tag: str, res: dict) -> dict:
            f"{tag}: the fused infer differs from the old chain")
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    counts = {}
-    for name, fn in (("infer", fused), ("old chain", old)):
-        # one warm-up step under the profiler, then the counted call (the
-        # tracer may miss a short call's kernels in the step that starts
-        # it); the step's own device-side annotation is not a kernel
-        seen = counts[name] = []
-        with torch.profiler.profile(
-                activities=acts,
-                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-                on_trace_ready=lambda p, seen=seen: seen.extend(
-                    e.name for e in p.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.name.startswith("ProfilerStep"))) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-    log(f"[{tag}] device kernels in one infer call at codes{tuple(x.shape)}: "
-        f"{len(counts['infer'])} ({'; '.join(k[:50] for k in counts['infer'])}); "
-        f"the old chain: {len(counts['old chain'])} "
-        f"({'; '.join(k[:40] for k in counts['old chain'])})")
-    expect(len(counts["infer"]) == 1, f"{tag}: one infer call ran "
-           f"{len(counts['infer'])} device kernels, not one")
+    # the counted call is bracketed by two fill kernels; a trace that lacks
+    # either bracket lost events (the tracer has dropped the start of a
+    # window) and is taken again, up to five times, instead of being read
+    bracket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    for attempt in range(5):
+        counts, fills = {}, []
+        for name, fn in (("infer", fused), ("old chain", old)):
+            # one warm-up step under the profiler, then the counted call (the
+            # tracer may miss a short call's kernels in the step that starts
+            # it); the step's own device-side annotation is not a kernel
+            seen = counts[name] = []
+
+            def read(p, seen=seen):
+                seen.extend(e.name for e in p.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and not e.name.startswith("ProfilerStep"))
+                fills.append(sum("FillFunctor" in n for n in seen))
+
+            with torch.profiler.profile(
+                    activities=acts,
+                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                    on_trace_ready=read) as prof:
+                for _ in range(2):
+                    bracket.fill_(1)
+                    fn()
+                    bracket.fill_(2)
+                    torch.cuda.synchronize()
+                    prof.step()
+        if fills == [2, 2]:
+            break
+        log(f"[{tag}] trace {attempt + 1} of one infer call lost events (brackets seen "
+            f"{fills}, of 2 each); taken again")
+    expect(fills == [2, 2], f"{tag}: no trace of five held both brackets and nothing "
+           f"else of their kind (fill kernels seen {fills}, of 2 each)")
+    # every kernel of the trace is counted, less the two brackets
+    n_infer, n_old = len(counts["infer"]) - 2, len(counts["old chain"]) - 2
+    log(f"[{tag}] device kernels in one infer call at codes{tuple(x.shape)}, less the "
+        f"two brackets: {n_infer} ({'; '.join(k[:50] for k in counts['infer'])}); "
+        f"the old chain: {n_old} ({'; '.join(k[:40] for k in counts['old chain'])})")
+    expect(n_infer == 1, f"{tag}: one infer call ran {n_infer} device kernels, not one")
     times = {}
     for name, fn in (("old", old), ("fused", fused), ("fused", fused), ("old", old)):
         times.setdefault(name, []).append((cuda_ms(fn, 50), cuda_ms(fn, 50, queued=True)))
-    out = {"kernels_per_call": len(counts["infer"]),
-           "old_kernels_per_call": len(counts["old chain"]),
+    out = {"kernels_per_call": n_infer, "old_kernels_per_call": n_old,
            "ms": [t[0] for t in times["fused"]], "device_ms": [t[1] for t in times["fused"]],
            "old_ms": [t[0] for t in times["old"]], "old_device_ms": [t[1] for t in times["old"]]}
     log(f"[{tag}] infer(codes{tuple(x.shape)}): fused {', '.join(f'{v:.4f}' for v in out['ms'])} "
@@ -916,6 +958,337 @@ def infer_probe(tag: str, res: dict) -> dict:
         f"{', '.join(f'{v:.4f}' for v in out['old_ms'])} ms (device "
         f"{', '.join(f'{v:.4f}' for v in out['old_device_ms'])}); turns: old, fused, fused, old")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: online adaptation, sessions, the batched engine, checkpoints
+# ---------------------------------------------------------------------------
+
+def _same_decisions(a, b) -> bool:
+    return (len(a) == len(b) and all(
+        x.frame_index == y.frame_index and x.prediction == y.prediction
+        and np.array_equal(x.scores, y.scores) and np.array_equal(x.frame_hv, y.frame_hv)
+        for x, y in zip(a, b)))
+
+
+def fit_phase(tag: str, res: dict, patients: int) -> dict:
+    """``fit_iterative`` on record 0 for the first ``patients`` patients of
+    the bank, detection on their held-out records before (the one-shot
+    bank) and after; patient 0's fit against the CPU plain path (class HVs,
+    counter file, per-epoch gated-update counts), and ``epochs=0`` against
+    its ``train_one_shot`` on the card.  Returns the retrained bank."""
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import _fit_iterative
+
+    records = res["records"][:patients]
+    t0 = time.perf_counter()
+    bank = {f"patient{pid}": res["bank"][f"patient{pid}"].fit_iterative(
+        codes[:1], labels[:1], epochs=ONLINE_EPOCHS) for pid, codes, labels, _ in records}
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    before, after = [], []
+    for pid, codes, _, onsets in records:
+        p_one = res["preds"][pid].cpu().numpy()
+        p_fit = bank[f"patient{pid}"].infer(codes[1:])[1].cpu().numpy()
+        for i in range(p_one.shape[0]):
+            before.append(metrics.detection_metrics(p_one[i], onsets[1 + i]))
+            after.append(metrics.detection_metrics(p_fit[i], onsets[1 + i]))
+    agg = [metrics.aggregate(r) for r in (before, after)]
+    log(f"[{tag}] fit_iterative: {len(records)} patients x {ONLINE_EPOCHS} epochs in "
+        f"{fit_s:.2f} s; detection on {agg[0]['n']} held-out seizures before / after: "
+        f"accuracy {agg[0]['detection_accuracy']:.4f} / {agg[1]['detection_accuracy']:.4f}, "
+        f"mean delay {agg[0]['mean_delay_s']:.3f} / {agg[1]['mean_delay_s']:.3f} s, "
+        f"false-alarm rate {agg[0]['false_alarm_rate']:.4f} / {agg[1]['false_alarm_rate']:.4f}")
+
+    t0 = time.perf_counter()
+    pid, codes, labels, _ = records[0]
+    pipe = res["bank"][f"patient{pid}"]
+    lab = torch.as_tensor(labels[:1])
+    card = _fit_iterative(pipe.params, codes[:1], lab.cuda(), 0.0, pipe.cfg, ONLINE_EPOCHS)
+    cpu = _fit_iterative(pipe.params.to("cpu"), codes[:1].cpu(), lab, 0.0, pipe.cfg,
+                         ONLINE_EPOCHS)
+    fitted = bank[f"patient{pid}"]
+    expect(torch.equal(card[0], fitted.class_hvs)
+           and all(torch.equal(a.cpu(), b) for a, b in
+                   zip((card[0], card[1].counts, card[1].n, card[2]),
+                       (cpu[0], cpu[1].counts, cpu[1].n, cpu[2]))),
+           f"{tag}: fit_iterative on the card differs from the plain path")
+    zero = pipe.fit_iterative(codes[:1], labels[:1], epochs=0)
+    expect(torch.equal(zero.class_hvs, pipe.class_hvs)
+           and torch.equal(zero.am_state.counts, pipe.am_state.counts)
+           and torch.equal(zero.am_state.n, pipe.am_state.n),
+           f"{tag}: fit_iterative(epochs=0) differs from train_one_shot on the card")
+    log(f"[{tag}] plain: patient {pid}: fit_iterative equal on the CPU (gated updates "
+        f"per epoch {card[2].tolist()}); epochs=0 equals train_one_shot on the card "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return bank
+
+
+def fit_epoch_ms(tag: str, res: dict) -> dict:
+    """Patient 0's ``_fit_iterative`` at 0 and ``ONLINE_EPOCHS`` epochs:
+    host-paced between CUDA events, and its device-busy time and kernel
+    count under the profiler (an epoch queues some 40 kernels, so many calls
+    fill the launch queue and a queued timing would be host-paced too); an
+    epoch is the difference over the epochs."""
+    from repro_torch.core.pipeline import _fit_iterative
+
+    pid, codes, labels, _ = res["records"][0]
+    pipe = res["bank"][f"patient{pid}"]
+    lab = torch.as_tensor(labels[:1]).cuda()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t = {}
+    for e in (0, ONLINE_EPOCHS):
+        fn = lambda e=e: _fit_iterative(pipe.params, codes[:1], lab, 0.0, pipe.cfg, e)  # noqa: E731
+        host = cuda_ms(fn, 10)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy, dev_us = device_busy(prof)
+        n_kernels = sum(1 for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA)
+        t[e] = (host, busy, n_kernels, dev_us)
+    e = ONLINE_EPOCHS
+    out = {"epochs0_ms": t[0][0], "epochs0_busy_ms": t[0][1], "fit_ms": t[e][0],
+           "fit_busy_ms": t[e][1], "epoch_ms": (t[e][0] - t[0][0]) / e,
+           "epoch_busy_ms": (t[e][1] - t[0][1]) / e,
+           "epoch_kernels": (t[e][2] - t[0][2]) / e}
+    top = sorted(t[e][3].items(), key=lambda kv: -kv[1])[:5]
+    log(f"[{tag}] fit_iterative, one patient ({labels[:1].size} frames): {e} epochs "
+        f"{out['fit_ms']:.4f} ms host-paced (device busy {out['fit_busy_ms']:.4f} ms), 0 epochs "
+        f"{out['epochs0_ms']:.4f} ms ({out['epochs0_busy_ms']:.4f} ms): an epoch "
+        f"{out['epoch_ms']:.4f} ms host-paced, {out['epoch_busy_ms']:.4f} ms device busy, "
+        f"{out['epoch_kernels']:.1f} device kernels; "
+        + "; ".join(f"{k[:50]} {v / 1e3:.3f} ms" for k, v in top))
+    return out
+
+
+def _adapt_streams(bank: dict, records, sessions: int, frames: int, rng):
+    """Each session streams ``frames`` whole frames of one of its patient's
+    held-out records, aligned to the record's frames and placed around its
+    onset; returns the streams and each session's frame labels from its
+    first frame on (``ieeg.frame_labels``)."""
+    rec_of = {f"patient{r[0]}": r for r in records}
+    names = list(bank)
+    host = {n: rec_of[n][1].cpu().numpy() for n in names}
+    channels = host[names[0]].shape[-1]
+    streams = np.empty((sessions, frames * 256, channels), np.uint8)
+    labels = []
+    for i in range(sessions):
+        name = names[i % len(names)]
+        _, _, frame_labels, onsets = rec_of[name]
+        r = 1 + (i // len(names)) % (frame_labels.shape[0] - 1)
+        f0 = int(np.clip(onsets[r] - rng.integers(1, frames + 1), 0,
+                         frame_labels.shape[1] - frames))
+        streams[i] = host[name][r, f0 * 256:(f0 + frames) * 256]
+        labels.append(frame_labels[r, f0:])
+    return streams, labels
+
+
+def hv_u32(words: torch.Tensor) -> np.ndarray:
+    from repro_torch.core import hv
+
+    return hv.to_u32(words)
+
+
+def adaptive_fleet(tag: str, bank: dict, records, sessions: int, rounds: int,
+                   compare: int, loops: int, checkpoint: bool) -> dict:
+    """An adaptive fleet over ``bank``: ``rounds`` rounds of 256 cycles (and,
+    with ``checkpoint``, a ragged round, a save mid-stream, a restore into a
+    fresh fleet and two more rounds on both), each push followed by
+    ``adapt`` with each session's true label of its last frame (-1 for
+    every fourth session and for a session without a new frame).  The first
+    ``compare`` sessions are replayed by a CPU fleet and the first ``loops``
+    by ``SeizureSession`` loops on the card; all must agree."""
+    import tempfile
+
+    from repro_torch.serve.engine import SeizureSession
+    from repro_torch.serve.fleet import StreamingFleet
+
+    names = list(bank)
+    owners = [names[i % len(names)] for i in range(sessions)]
+    rng = np.random.default_rng(SEED + 8)
+    steps = [("push", np.full(sessions, 256))] * rounds
+    if checkpoint:
+        ragged = rng.integers(0, 257, sessions)
+        ragged[:8] = 0
+        steps += [("push", ragged), ("checkpoint", None)]
+        steps += [("push", np.full(sessions, 256))] * 2
+    frames = -(-sum(int(n.max()) for k, n in steps if k == "push") // 256)
+    streams, frame_labels = _adapt_streams(bank, records, sessions, frames, rng)
+    fleet = StreamingFleet(bank, owners)
+    cpu_fleet = StreamingFleet({n: p.to("cpu") for n, p in bank.items()}, owners[:compare])
+    loop = [SeizureSession(bank[o]) for o in owners[:loops]]
+    resumed, out = None, {"adapt_ms": [], "applied": [], "sessions": sessions}
+    pos = 0
+    for k, (kind, lengths) in enumerate(steps):
+        if kind == "checkpoint":
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                fleet.save(tmp)
+                out["save_ms"] = (time.perf_counter() - t0) * 1e3
+                resumed = StreamingFleet(bank, owners)
+                t0 = time.perf_counter()
+                resumed.restore(tmp)
+                torch.cuda.synchronize()
+                out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+                try:
+                    StreamingFleet(bank, owners[:sessions // 2]).restore(tmp)
+                    refused = False
+                except ValueError as exc:
+                    refused = "does not match" in str(exc)
+            expect(refused, f"{tag}: a fleet of another session count restored the checkpoint")
+            log(f"[{tag}] checkpoint mid-stream ({int((fleet.fill_levels > 0).sum())} of "
+                f"{sessions} sessions mid-window): save {out['save_ms']:.3f} ms, restore into "
+                f"a fresh fleet {out['restore_ms']:.3f} ms (host clock); a fleet of "
+                f"{sessions // 2} sessions is refused")
+            continue
+        chunks = [streams[i, pos:pos + int(n)] for i, n in enumerate(lengths)]
+        pos += int(lengths.max())
+        before = fleet.frame_indices
+        dec = fleet.push(chunks)
+        fidx = fleet.frame_indices
+        labels = np.asarray([frame_labels[i][fidx[i] - 1] if fidx[i] > before[i]
+                             and i % 4 != 3 else -1 for i in range(sessions)])
+        if k == len(steps) - 1 and sessions >= 1024:
+            # the last adapt runs under the profiler: its device time
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                applied = fleet.adapt(labels)
+            out["adapt_device_ms"], _ = device_busy(prof)
+        else:
+            t0 = time.perf_counter()
+            applied = fleet.adapt(labels)
+            out["adapt_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["applied"].append(int(applied.sum()))
+        if resumed is not None:
+            expect(all(_same_decisions(a, b) for a, b in zip(resumed.push(chunks), dec))
+                   and np.array_equal(resumed.adapt(labels), applied),
+                   f"{tag}: the restored fleet differs from the uninterrupted one")
+        expect(all(_same_decisions(a, b) for a, b in zip(cpu_fleet.push(chunks[:compare]), dec))
+               and np.array_equal(cpu_fleet.adapt(labels[:compare]), applied[:compare]),
+               f"{tag}: the adaptive fleet differs from the CPU plain fleet")
+        for i, sess in enumerate(loop):
+            expect(_same_decisions(sess.push(chunks[i]), dec[i]),
+                   f"{tag}: session {i}: SeizureSession decisions differ from the fleet's")
+            if labels[i] >= 0:
+                expect(sess.adapt(int(labels[i])) == bool(applied[i]),
+                       f"{tag}: session {i}: SeizureSession.adapt differs from the fleet's")
+    rows = fleet.class_rows
+    expect(np.array_equal(cpu_fleet.class_rows, rows[:compare])
+           and all(np.array_equal(hv_u32(s.class_hvs), rows[i]) for i, s in enumerate(loop))
+           and (resumed is None or np.array_equal(resumed.class_rows, rows)),
+           f"{tag}: adapted class rows differ")
+    n_dec = int(fleet.frame_indices.sum())
+    log(f"[{tag}] adaptive fleet: {sessions} sessions, {len(out['applied'])} pushes + adapt, "
+        f"{n_dec} decisions; applied per adapt {out['applied']}; adapt host-clock ms "
+        + ", ".join(f"{x:.3f}" for x in out["adapt_ms"])
+        + (f"; one adapt's device busy {out['adapt_device_ms']:.3f} ms"
+           if "adapt_device_ms" in out else "")
+        + f"; equal to a CPU fleet ({compare} sessions)"
+        + (f", {loops} SeizureSession loops on the card" if loops else "")
+        + (" and the restored fleet" if resumed is not None else ""))
+    expect(sum(out["applied"]) > 0, f"{tag}: no adapt update fired")
+    return out
+
+
+def sessions_on_card(tag: str, bank: dict, records) -> dict:
+    """``SeizureSession``s on the card (the fleet kernel at S = 1) over
+    ragged chunks, a sub-window one, one across a window and one longer than
+    the largest bucket, against a fleet of the same sessions; a snapshot
+    taken mid-window goes through ``to_bytes``/``from_bytes`` and resumes
+    on a CPU copy of the pipeline with equal decisions.  Then one session's
+    push of 256 cycles (one frame) is timed."""
+    from repro_torch.kernels.hdc_am.ops import am_search
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.serve.engine import SeizureSession, SessionSnapshot
+    from repro_torch.serve.fleet import StreamingFleet
+
+    names = [list(bank)[i % len(bank)] for i in range(LOOP_SESSIONS)]
+    rng = np.random.default_rng(SEED + 9)
+    # per push, each session's chunk: session 0 takes a sub-window chunk,
+    # one across a window, one longer than the largest bucket (three launches)
+    pushes = [(100, 0, 300, 5), (200, 17, 60, 256), (700, 256, 1, 40), (31, 600, 513, 0)]
+    after = (40, 300)  # session 0, after its snapshot
+    need = max(sum(p[i] for p in pushes) for i in range(len(names))) + sum(after)
+    streams, _ = _adapt_streams(bank, records, len(names), -(-need // 256), rng)
+    fleet = StreamingFleet(bank, names)
+    sess = [SeizureSession(bank[n]) for n in names]
+    pos = np.zeros(len(names), np.int64)
+
+    def take(lens):
+        chunks = [streams[i, pos[i]:pos[i] + n] for i, n in enumerate(lens)]
+        pos[:] += lens
+        return chunks
+
+    n_dec = 0
+    for lens in pushes:
+        chunks = take(lens)
+        for i, (a, b) in enumerate(zip(fleet.push(chunks), [s.push(c) for s, c in zip(sess, chunks)])):
+            n_dec += len(b)
+            expect(_same_decisions(a, b), f"{tag}: session {i} differs from the fleet")
+    snap = sess[0].snapshot(names[0])
+    expect(0 < snap.filled < 256, f"{tag}: the snapshot is not mid-window")
+    blob = snap.to_bytes()
+    cpu = SeizureSession.from_snapshot(bank[names[0]].to("cpu"), SessionSnapshot.from_bytes(blob))
+    for n in after:
+        chunk = take([n] + [0] * (len(names) - 1))[0]
+        expect(_same_decisions(sess[0].push(chunk), cpu.push(chunk)),
+               f"{tag}: the session resumed on the CPU differs from the card's")
+    timed, chunk = SeizureSession(bank[names[0]]), streams[0, :256]
+    push_ms = []
+    before = (fleet_counts_kernel.launches, am_search.launches)
+    for _ in range(SESSION_PUSHES):
+        t0 = time.perf_counter()
+        timed.push(chunk)
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    per_push = [(b - a) / SESSION_PUSHES for a, b in
+                zip(before, (fleet_counts_kernel.launches, am_search.launches))]
+    expect(per_push == [1, 1], f"{tag}: a one-frame push launched {per_push} fleet and AM "
+           "kernels, not one each")
+    med = float(np.median(push_ms[2:]))
+    log(f"[{tag}] sessions on the card: {len(names)} sessions, pushes of "
+        f"{pushes} cycles, {n_dec} decisions equal to a fleet; a "
+        f"snapshot at {snap.filled} cycles into a window ({len(blob)} bytes) resumed on the "
+        f"CPU with equal decisions; one push of 256 cycles (one frame, one fleet-kernel "
+        f"and one AM launch): median {med:.3f} ms host clock over {SESSION_PUSHES - 2} pushes")
+    return {"push_frame_ms": med, "push_ms": push_ms}
+
+
+def engine_serve(tag: str, bank: dict, records) -> dict:
+    """One ``ServingEngine.serve`` of one held-out record a patient in one
+    dispatch: scores and predictions equal each patient's ``infer`` on the
+    card, frames its ``encode_frames``; the fleet kernel's launches a serve
+    and its host-clock time."""
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.serve.engine import ServingEngine
+
+    rec_of = {f"patient{r[0]}": r for r in records}
+    engine = ServingEngine(bank)
+    reqs = [(n, rec_of[n][1][1].cpu().numpy()) for n in engine.patient_ids]
+    before = fleet_counts_kernel.launches
+    out = engine.serve(reqs)
+    per_serve = fleet_counts_kernel.launches - before
+    for (n, _), d in zip(reqs, out):
+        codes = rec_of[n][1][1:2]
+        s, p = bank[n].infer(codes)
+        f = bank[n].encode_frames(codes)
+        expect(np.array_equal(d.scores, s[0].cpu().numpy())
+               and np.array_equal(d.predictions, p[0].cpu().numpy())
+               and np.array_equal(d.frames, hv_u32(f[0])),
+               f"{tag}: serve differs from {n}'s infer / encode_frames")
+    serve_ms = []
+    for _ in range(SERVE_REPS):
+        t0 = time.perf_counter()
+        engine.serve(reqs)
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(serve_ms))
+    expect(per_serve == 1, f"{tag}: one serve launched the fleet kernel {per_serve} times")
+    log(f"[{tag}] engine: serve of {len(reqs)} requests x {reqs[0][1].shape[0]} cycles "
+        f"({out[0].frames.shape[0]} frames each) in one dispatch, equal to each patient's "
+        f"infer and encode_frames; {per_serve} fleet-kernel launch a serve "
+        f"({len(reqs) * out[0].frames.shape[0]} frame-sessions); median {med:.3f} ms host "
+        f"clock (ms: {', '.join(f'{x:.3f}' for x in serve_ms)})")
+    return {"serve_ms": med, "serve_ms_all": serve_ms, "fleet_launches": per_serve}
 
 
 class Launches:
@@ -988,17 +1361,21 @@ def main() -> int:
     records = [(p.pid, c, np.stack([ieeg.frame_labels(r, 256) for r in p.records]),
                 [ieeg.onset_frame(r, 256) for r in p.records])
                for (p, _), c in zip(patients, codes)]
-    res = train_and_detect("sparse_compim", cfg, records, calibrate=True)
-    serve_fleet("sparse_compim", res, SESSIONS, STEADY_ROUNDS, profile=True)
+    sparse = train_and_detect("sparse_compim", cfg, records, calibrate=True)
+    serve_fleet("sparse_compim", sparse, SESSIONS, STEADY_ROUNDS, profile=True)
     launches.stop("sparse_compim")
-    probes = {"sparse_compim": infer_probe("sparse_compim", res)}
-    compare_with_plain("sparse_compim", res, COMPARE_SESSIONS)
+    probes = {"sparse_compim": infer_probe("sparse_compim", sparse)}
+    compare_with_plain("sparse_compim", sparse, COMPARE_SESSIONS)
 
-    # phase 6: dense, the same codes
+    # phase 6: dense, the same codes; fit_iterative and adapt, short
     launches.start()
     res = train_and_detect("dense", HDCConfig(variant="dense"), records,
                            calibrate=False)
     serve_fleet("dense", res, SESSIONS, STEADY_ROUNDS, profile=True)
+    dense_bank = fit_phase("dense", res, patients=1)
+    adaptive_fleet("dense", dense_bank, res["records"], DENSE_ADAPT_SESSIONS,
+                   DENSE_ADAPT_ROUNDS, compare=DENSE_ADAPT_SESSIONS, loops=0,
+                   checkpoint=False)
     launches.stop("dense")
     probes["dense"] = infer_probe("dense", res)
     compare_with_plain("dense", res, COMPARE_SESSIONS)
@@ -1012,6 +1389,17 @@ def main() -> int:
     launches.stop("sparse_naive")
     probes["sparse_naive"] = infer_probe("sparse_naive", res)
     compare_with_plain("sparse_naive", res, NAIVE_SESSIONS)
+
+    # phase 8: online adaptation, sessions, the engine and checkpoints on the
+    # sparse_compim bank of phase 4
+    launches.start()
+    fit_bank = fit_phase("online", sparse, patients=PATIENTS)
+    online = adaptive_fleet("online", fit_bank, records, SESSIONS, ADAPT_ROUNDS,
+                            compare=COMPARE_SESSIONS, loops=LOOP_SESSIONS, checkpoint=True)
+    online.update(sessions_on_card("online", fit_bank, records))
+    online.update(engine_serve("online", fit_bank, records))
+    launches.stop("online")
+    online.update(fit_epoch_ms("online", sparse))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1030,6 +1418,9 @@ def main() -> int:
         if name in ("hdc_encoder", "dense_hdc"):  # infer(codes[1:]) on each path
             rows[-1]["infer"] = {p: v for p, v in probes.items()
                                  if (p == "dense") == (name == "dense_hdc")}
+        rows[-1]["path_launches"] = {p: c[name] for p, c in launches.paths.items()}
+    log("[online] " + json.dumps({k: v for k, v in online.items()
+                                  if not isinstance(v, list) or k == "applied"}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

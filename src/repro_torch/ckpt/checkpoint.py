@@ -1,0 +1,238 @@
+"""Checkpoints with atomic save and restore onto the caller's devices (port
+of ``repro.ckpt.checkpoint``; the port keeps its own copy).
+
+Layout (one directory per step, atomically renamed on completion):
+
+    <root>/step_00000100.tmp/...    (in-flight)
+    <root>/step_00000100/
+        manifest.json               {"step", "leaves": [{"key", "file",
+                                     "shape", "dtype"}, ...], "meta": {...}}
+        arr_00000.npy ...
+
+* a checkpoint is valid iff the final rename happened, so a crash mid-save
+  never corrupts the latest checkpoint;
+* ``latest_step`` scans for the highest complete step directory;
+* ``restore`` places each leaf on the device of the matching tensor in
+  ``like`` (there are no shardings in the port).
+
+A tree is a dataclass (leaves keyed by field name, as the reference keys a
+registered dataclass), a dict (by key), a list or tuple (by index), or a
+leaf: a tensor or a numpy array.  ``None`` holds no leaf.  Leaves are
+saved as numpy arrays in their own dtype; on restore a 32-bit integer leaf
+saved in the other signedness (packed words saved as uint32, carried as
+int32) comes back with the same bits.
+
+Async: ``AsyncCheckpointer.save_async`` copies the tree to host memory on
+the caller's thread and writes it on a background thread; ``wait()`` joins
+before the next save or at exit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+_KEY_SEP = "/"
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _children(tree) -> list[tuple[str, Any]]:
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), x) for i, x in enumerate(tree)]
+    raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
+
+
+def _map(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """The tree with every leaf replaced by ``fn(key, leaf)``."""
+    if tree is None:
+        return None
+    if _is_leaf(tree):
+        return fn(prefix, tree)
+    kids = {name: _map(fn, child, f"{prefix}{_KEY_SEP}{name}" if prefix else name)
+            for name, child in _children(tree)}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **kids)
+    if isinstance(tree, dict):
+        return {k: kids[str(k)] for k in tree}
+    return type(tree)(kids[str(i)] for i in range(len(tree)))
+
+
+def _flatten(tree: Any) -> list[tuple[str, Any]]:
+    """(key, leaf) pairs in tree order, keys joined by ``/``."""
+    out: list[tuple[str, Any]] = []
+    _map(lambda key, leaf: out.append((key, leaf)), tree)
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _np_dtype(leaf) -> np.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return leaf.dtype
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)  # hard link: refcounted, safe across _gc removals
+    except OSError:  # cross-device root or a filesystem without links
+        shutil.copy2(src, dst)
+
+
+def save(root: str, step: int, tree: Any, meta: dict | None = None,
+         link_from: dict[str, str] | None = None) -> str:
+    """Synchronous atomic save; returns the final directory.
+
+    ``link_from`` (optional): ``{leaf key: existing .npy path}`` for leaves the caller
+    knows are unchanged since a previous step; they are hard-linked (copied
+    where links are unsupported) instead of written, and a linked file whose
+    shape or dtype differs from the live leaf raises."""
+    final = os.path.join(root, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": [], "meta": meta or {}}
+    link_from = link_from or {}
+    for i, (key, leaf) in enumerate(_flatten(tree)):
+        fname = f"arr_{i:05d}.npy"
+        src = link_from.get(key)
+        if src is not None:
+            header = np.load(src, mmap_mode="r")  # header only, no read
+            want = _np_dtype(leaf)
+            if tuple(header.shape) != tuple(leaf.shape) or header.dtype != want:
+                raise ValueError(
+                    f"link_from[{key!r}]: {src} holds "
+                    f"{header.dtype}{tuple(header.shape)}, live leaf is "
+                    f"{want}{tuple(leaf.shape)}")
+            shape, dtype = list(header.shape), str(header.dtype)
+            del header
+            _link_or_copy(src, os.path.join(tmp, fname))
+        else:
+            arr = _host(leaf)
+            np.save(os.path.join(tmp, fname), arr)
+            shape, dtype = list(arr.shape), str(arr.dtype)
+        manifest["leaves"].append({"key": key, "file": fname,
+                                   "shape": shape, "dtype": dtype})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def leaf_files(root: str, step: int) -> dict[str, str]:
+    """``{leaf key: absolute .npy path}`` for one saved step: the source map
+    of an incremental ``save(..., link_from=...)``."""
+    d = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    return {leaf["key"]: os.path.join(d, leaf["file"])
+            for leaf in manifest["leaves"]}
+
+
+class AsyncCheckpointer:
+    """Snapshot on the caller thread, write on a background thread."""
+
+    def __init__(self, root: str, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save_async(self, step: int, tree: Any, meta: dict | None = None):
+        self.wait()
+        host_tree = _map(lambda _, leaf: _host(leaf), tree)
+
+        def _write():
+            save(self.root, step, host_tree, meta)
+            _gc(self.root, self.keep)
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+
+def _gc(root: str, keep: int):
+    steps = sorted(list_steps(root))
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(root, f"step_{s:08d}"), ignore_errors=True)
+
+
+def list_steps(root: str) -> list[int]:
+    if not os.path.isdir(root):
+        return []
+    out = []
+    for name in os.listdir(root):
+        m = re.fullmatch(r"step_(\d{8})", name)
+        if m and os.path.exists(os.path.join(root, name, "manifest.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(root: str) -> int | None:
+    steps = list_steps(root)
+    return steps[-1] if steps else None
+
+
+def _like_leaf(arr: np.ndarray, like, key: str):
+    """A loaded array as the leaf ``like`` is: a tensor of its dtype on its
+    device, or a numpy array."""
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                         f"{tuple(like.shape)}")
+    if not isinstance(like, torch.Tensor):
+        return arr
+    want = _np_dtype(like)
+    if arr.dtype != want:
+        if arr.dtype.kind not in "iu" or want.kind not in "iu" \
+                or arr.dtype.itemsize != want.itemsize:
+            raise ValueError(f"dtype mismatch for {key}: ckpt {arr.dtype} vs "
+                             f"{want}")
+        arr = arr.view(want)  # the same bits in the other signedness
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(like.device)
+
+
+def restore(root: str, step: int, like: Any) -> Any:
+    """Restore into the structure of ``like`` (a tree of tensors or numpy
+    arrays); each tensor leaf comes back on its ``like`` leaf's device."""
+    d = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+
+    def load(key, leaf):
+        arr = np.load(os.path.join(d, by_key[key]["file"]))
+        return _like_leaf(arr, leaf, key)
+
+    return _map(load, like)
+
+
+def restore_latest(root: str, like: Any):
+    step = latest_step(root)
+    if step is None:
+        return None, None
+    return step, restore(root, step, like)

@@ -12,15 +12,16 @@
     pipe = HDCPipeline.init(torch.Generator().manual_seed(42), cfg)
     pipe = pipe.calibrate_density(train_codes, target=0.25)
     pipe = pipe.train_one_shot(train_codes, train_labels)
+    pipe = pipe.fit_iterative(train_codes, train_labels, epochs=5)  # optional
     scores, preds = pipe.infer(test_codes)
 
 The pipeline lives on one device (the card unless ``device="cpu"`` is
 passed to ``init``).  Encoding runs the encoder kernels and scoring the AM
 kernel on the card, their plain versions on the CPU; ``infer`` on the card
 is one launch, the encoder kernel with its AM epilogue, while ``scores``
-keeps the standalone AM kernel.  Calibration runs the plain datapath, as in
-the reference.  Methods are pure: training and calibration return new
-pipelines.
+keeps the standalone AM kernel, which ``fit_iterative`` runs once an epoch.
+Calibration runs the plain datapath, as in the reference.  Methods are
+pure: training and calibration return new pipelines.
 """
 
 from __future__ import annotations
@@ -115,6 +116,30 @@ def _frame_counts(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
     spatial = spatial_encode(params, classifier.frame_view(codes, cfg.window),
                              cfg)
     return bundling.temporal_counts(spatial, cfg.dim)
+
+
+def _fit_iterative(params, codes: torch.Tensor, labels: torch.Tensor,
+                   margin: float, cfg: HDCConfig, epochs: int
+                   ) -> tuple[torch.Tensor, OnlineAMState, torch.Tensor]:
+    """One-shot init + ``epochs`` batch-iterative retraining passes: each
+    epoch re-thresholds the counter file to class HVs, scores every frame
+    through the standalone AM search and applies the gated update to all
+    misclassified / low-margin frames at once.  The frames are encoded
+    once, and no epoch reads the device from the host.  Returns (class
+    HVs, state, (epochs,) int32 gated-update counts)."""
+    frames = _encode_frames(params, codes, cfg)                  # (B, F, W)
+    flat = frames.reshape(-1, frames.shape[-1])
+    bits = hv.unpack_bits(flat, cfg.dim)
+    lab = labels.reshape(-1)
+    state = online.state_from_frames(bits, lab, cfg.n_classes)
+    n_upd = torch.zeros((epochs,), dtype=torch.int32, device=flat.device)
+    for e in range(epochs):
+        chvs = online.class_hvs_from_state(state, cfg)
+        scores = am_search(flat, chvs, mode=_am_mode(cfg), dim=cfg.dim)
+        state, gate = online.batch_update(state, bits, lab, scores,
+                                          margin=margin)
+        n_upd[e] = gate.sum(dtype=torch.int32)
+    return online.class_hvs_from_state(state, cfg), state, n_upd
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +266,21 @@ class HDCPipeline:
         state = online.state_from_frames(bits, labels.reshape(-1),
                                          self.cfg.n_classes)
         chvs = online.class_hvs_from_state(state, self.cfg)
+        return replace(self, class_hvs=chvs, am_state=state)
+
+    def fit_iterative(self, codes, labels, *, epochs: int = 5,
+                      margin: float = 0.0) -> "HDCPipeline":
+        """Iterative retraining (Pale et al.): one-shot init, then
+        ``epochs`` passes that re-score every frame and apply the gated
+        add-to-true / subtract-from-rival update to the counter file.
+        ``margin > 0`` also updates on correct frames whose lead over the
+        rival is below it; ``epochs=0`` equals ``train_one_shot``."""
+        if epochs < 0:
+            raise ValueError(f"epochs={epochs} must be >= 0")
+        labels = torch.as_tensor(labels, device=self.device)
+        self._check_labels(labels)
+        chvs, state, _ = _fit_iterative(self.params, self._codes(codes),
+                                        labels, margin, self.cfg, epochs)
         return replace(self, class_hvs=chvs, am_state=state)
 
     def _trained(self) -> torch.Tensor:

@@ -7,7 +7,8 @@ The fleet keeps S sessions in one device-resident ``FleetState``:
 * ``filled``      (S,)   int32 — cycles accumulated toward each next frame,
 * ``frame_index`` (S,)   int32 — frames emitted so far,
 
-plus each session's class rows and its last emitted frame and scores.  One
+plus each session's class rows, its online counter file (``am_counts``,
+``am_n``) and its last emitted frame and scores.  One
 step advances all sessions over a padded (S, t_pad, channels) uint8 code
 batch: the fused fleet kernel gathers the pre-bound rows, bundles them
 (OR tree for ``sparse_compim``; adder tree with thinning for
@@ -24,26 +25,35 @@ staging buffer per (slot, bucket), copied with ``non_blocking=True`` and
 double-buffered: a buffer is rewritten only after the step that read it
 has finished (a CUDA event recorded after that step).  The host keeps O(S)
 mirrors of ``filled``/``frame_index`` to route results without a sync;
-``collect_decisions`` is the only place that waits for the device.
+pushes never wait for the device, ``collect_decisions`` does (and so do
+``adapt``, ``save`` and ``restore``, which return host values).
+
+``adapt`` applies one gated online update to every session at once (plain
+torch, ``core/online.py``), and ``save``/``restore`` checkpoint the whole
+state mid-stream (``ckpt/checkpoint.py``).
 
 Decisions are bit-exact with the reference fleet.  Not ported yet: mesh
-placement, session tiles, AOT warm-up, ``adapt``, ``save``/``restore``,
-fault injection, ECC, channel masking and stage probes.
+placement, session tiles, AOT warm-up, elastic slots, fault injection, ECC,
+channel masking and stage probes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import hashlib
+import json
+import os
+from dataclasses import dataclass, fields, replace
 from typing import Hashable, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import hv
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.core import hv, online
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
 from repro_torch.serve import dispatch
-from repro_torch.serve.engine import FrameDecision
+from repro_torch.serve.engine import FrameDecision, _pack_frames
 
 DEFAULT_BUCKETS = (32, 64, 128, 256)
 
@@ -55,10 +65,16 @@ class FleetState:
     counts: torch.Tensor       # (S, D) int32 temporal accumulators
     filled: torch.Tensor       # (S,) int32 cycles toward each next frame
     frame_index: torch.Tensor  # (S,) int32 frames emitted so far
-    class_rows: torch.Tensor   # (S, C, W) int32 per-session AM rows
+    class_rows: torch.Tensor   # (S, C, W) int32 per-session (adaptive) AM rows
+    am_counts: torch.Tensor    # (S, C, D) int32 online counter-file bank
+    am_n: torch.Tensor         # (S, C) int32 frames bundled per class
     last_frame: torch.Tensor   # (S, W) int32 last emitted frame HV
     last_scores: torch.Tensor  # (S, C) int32 its AM scores
     has_frame: torch.Tensor    # (S,) int32 1 once a session has emitted
+
+
+# the leaves that hold packed words: checkpoints save them as uint32
+_PACKED_LEAVES = ("class_rows", "last_frame")
 
 
 @dataclass(frozen=True)
@@ -96,10 +112,7 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
     emits = n_emit > 0
     frame_counts = seg[:, :-1].clone()
     frame_counts[:, 0] += torch.where(emits[:, None], state.counts, 0)
-    if cfg.variant == "dense":
-        frames = hv.majority_pack(frame_counts, cfg.window, cfg.dim)
-    else:
-        frames = hv.threshold_pack(frame_counts, thresholds[:, None, None])
+    frames = _pack_frames(frame_counts, thresholds[:, None, None], cfg)
     scores = dispatch.owner_am_scores(frames, state.class_rows[:, None], cfg)
     sidx = torch.arange(s, device=chunk.device)
     last_slot = torch.clamp(n_emit - 1, min=0).to(torch.int64)
@@ -115,6 +128,25 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
         has_frame=state.has_frame | emits.to(torch.int32),
     )
     return new_state, FleetOut(frames=frames, scores=scores)
+
+
+def _fleet_adapt(state: FleetState, labels: torch.Tensor, margin: float,
+                 density: torch.Tensor, *, cfg: HDCConfig
+                 ) -> tuple[FleetState, torch.Tensor]:
+    """One gated online update for all S sessions: labels (S,) the true
+    class of each session's last emitted frame (-1 = no feedback), density
+    (S,) float32 each session's ``class_density``.  Sessions whose gate
+    fires get their counter files updated and their class rows
+    re-thresholded; the others pass through unchanged.  Returns (state,
+    applied (S,) bool)."""
+    bits = hv.unpack_bits(state.last_frame, cfg.dim)            # (S, D)
+    am = online.OnlineAMState(counts=state.am_counts, n=state.am_n)
+    new_am, applied = online.update(am, bits, labels, state.last_scores,
+                                    margin=margin, valid=state.has_frame > 0)
+    chvs = online.class_hvs_from_state(new_am, cfg, density=density[:, None])
+    class_rows = torch.where(applied[:, None, None], chvs, state.class_rows)
+    return replace(state, am_counts=new_am.counts, am_n=new_am.n,
+                   class_rows=class_rows), applied
 
 
 class StreamingFleet:
@@ -147,13 +179,23 @@ class StreamingFleet:
         owner_idx = np.asarray([pid_index[pid] for pid in owners], np.int64)
         thresholds = np.asarray([p.cfg.temporal_threshold for p in pipes],
                                 np.int32)
+        density = np.asarray([p.cfg.class_density for p in pipes], np.float32)
         dev = self._device
         self._n = len(owner_idx)
         self._tables = tables.contiguous()
         self._owner = torch.as_tensor(param_rows[owner_idx], device=dev)
         self._thresholds = torch.as_tensor(thresholds[owner_idx], device=dev)
+        self._density = torch.as_tensor(density[owner_idx], device=dev)
+        sel = torch.as_tensor(owner_idx, device=dev)
         bank = torch.stack([p.class_hvs for p in pipes])      # (P, C, W)
-        self._class_rows0 = bank[torch.as_tensor(owner_idx, device=dev)]
+        self._class_rows0 = bank[sel]
+        # each session's AM starts from its patient's trained counter file;
+        # a bank with a pipeline that has none cannot adapt
+        if all(p.am_state is not None for p in pipes):
+            self._am_counts0 = torch.stack([p.am_state.counts for p in pipes])[sel]
+            self._am_n0 = torch.stack([p.am_state.n for p in pipes])[sel]
+        else:
+            self._am_counts0 = self._am_n0 = None
         self._state = self._zero_state()
         # host mirrors: the emission schedule is a function of (filled,
         # lengths), so the host routes results without reading the device
@@ -174,14 +216,20 @@ class StreamingFleet:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
+        if self._am_counts0 is not None:
+            am_counts, am_n = self._am_counts0.clone(), self._am_n0.clone()
+        else:
+            am_counts, am_n = zeros(s, c, cfg.dim), zeros(s, c)
         return FleetState(counts=zeros(s, cfg.dim), filled=zeros(s),
                           frame_index=zeros(s),
                           class_rows=self._class_rows0.clone(),
+                          am_counts=am_counts, am_n=am_n,
                           last_frame=zeros(s, cfg.words),
                           last_scores=zeros(s, c), has_frame=zeros(s))
 
     def reset(self) -> None:
-        """Zero every accumulator, fill level and frame index."""
+        """Zero every accumulator, fill level and frame index, and restore
+        every session's AM to its patient's trained state."""
         self._state = self._zero_state()
         self._filled_h[:] = 0
         self._fidx_h[:] = 0
@@ -361,3 +409,103 @@ class StreamingFleet:
         """Feed one (t_i, channels) uint8 chunk per session (lengths may
         differ, 0 included); returns each session's completed decisions."""
         return self.collect_decisions(self.push_raw(chunks))
+
+    # -- online adaptation ----------------------------------------------------
+
+    @property
+    def class_rows(self) -> np.ndarray:
+        """(S, C, W) uint32 per-session (possibly adapted) class HV rows."""
+        return hv.to_u32(self._state.class_rows)
+
+    def adapt(self, labels: Sequence[int], *, margin: float = 0.0) -> np.ndarray:
+        """Personalise all S sessions' AMs from one feedback label each:
+        ``labels[i]`` is the true class of session ``i``'s last emitted
+        frame, ``-1`` no feedback; sessions without a frame are skipped.
+        Equal to ``SeizureSession.adapt`` per stream.  Returns the (S,) bool
+        mask of sessions whose update fired."""
+        if self._am_counts0 is None:
+            raise ValueError(
+                "fleet bank has pipelines without am_state counter files; "
+                "train them with train_one_shot/fit_iterative to enable "
+                "adapt()")
+        lab = np.asarray(labels, np.int64)
+        if lab.shape != (self._n,):
+            raise ValueError(
+                f"adapt needs one label per session ({self._n}), got shape "
+                f"{lab.shape}")
+        if lab.max(initial=-1) >= self._cfg.n_classes:
+            raise ValueError(
+                f"labels must be < n_classes={self._cfg.n_classes} "
+                "(-1 = no feedback)")
+        self._state, applied = _fleet_adapt(
+            self._state, torch.as_tensor(lab, device=self._device), margin,
+            self._density, cfg=self._cfg)
+        return applied.cpu().numpy()
+
+    # -- durability -----------------------------------------------------------
+
+    def _meta(self) -> dict:
+        return {
+            "kind": "hdc_fleet",
+            "n_sessions": self._n,
+            "dim": self._cfg.dim,
+            "window": self._cfg.window,
+            "n_classes": self._cfg.n_classes,
+            "variant": self._cfg.variant,
+            "bank": self._bank_fingerprint(),
+        }
+
+    def _bank_fingerprint(self) -> str:
+        """Digest of what a saved state is only valid against: the pre-bound
+        tables, each session's table row, threshold and class density, and
+        its initial class rows and counter file.  Packed words are hashed as
+        uint32."""
+        h = hashlib.sha256()
+        operands = [hv.to_u32(self._tables), self._owner.cpu().numpy(),
+                    self._thresholds.cpu().numpy(), self._density.cpu().numpy(),
+                    hv.to_u32(self._class_rows0)]
+        if self._am_counts0 is not None:
+            operands += [self._am_counts0.cpu().numpy(), self._am_n0.cpu().numpy()]
+        for arr in operands:
+            arr = np.ascontiguousarray(arr)
+            h.update(str((arr.dtype.str, arr.shape)).encode())
+            h.update(arr.tobytes())
+        return h.hexdigest()[:16]
+
+    def save(self, root: str, step: int | None = None) -> str:
+        """Checkpoint the whole fleet state (streaming accumulators and
+        online AM banks) under ``root`` with the checkpoint module's atomic
+        rename; ``step`` defaults to one past the latest.  Packed words are
+        saved as uint32.  Returns the checkpoint directory."""
+        if step is None:
+            latest = ckpt.latest_step(root)
+            step = 0 if latest is None else latest + 1
+        host = FleetState(**{
+            f.name: (hv.to_u32(getattr(self._state, f.name))
+                     if f.name in _PACKED_LEAVES
+                     else getattr(self._state, f.name).cpu().numpy())
+            for f in fields(FleetState)})
+        return ckpt.save(root, step, host, meta=self._meta())
+
+    def restore(self, root: str, step: int | None = None) -> int:
+        """Restore a ``save``d state into this fleet (the same bank and
+        session count); pushes continue mid-stream from the restored fill
+        levels.  Returns the step."""
+        if step is None:
+            step = ckpt.latest_step(root)
+            if step is None:
+                raise FileNotFoundError(f"no fleet checkpoint under {root!r}")
+        with open(os.path.join(root, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            meta = json.load(f).get("meta", {})
+        want = self._meta()
+        bad = {k: (meta.get(k), v) for k, v in want.items()
+               if meta.get(k) != v}
+        if bad:
+            raise ValueError(
+                f"checkpoint does not match this fleet: {bad} "
+                "(saved, expected)")
+        self._state = ckpt.restore(root, step, like=self._state)
+        self._filled_h = self._state.filled.cpu().numpy().astype(np.int64)
+        self._fidx_h = self._state.frame_index.cpu().numpy().astype(np.int64)
+        return step

@@ -5,9 +5,10 @@
   own copies of the numpy-only modules it needs).
 * Importing the port builds nothing and needs no CUDA toolkit.
 * Entry points run on the card by default: without a card and without
-  ``device=``, they raise instead of falling back to the CPU.
-* Kernel wrappers take CPU tensors to their plain versions and refuse
-  tensors on any other non-CUDA device.
+  ``device=``, they raise instead of falling back to the CPU, and nothing
+  built on them (engine, session, fleet) detours to the CPU either.
+* Kernel wrappers, the engine and the session take CPU tensors to their
+  plain versions and refuse tensors on any other non-CUDA device.
 
 These checks are structural; no numerical tolerance is involved.
 """
@@ -47,6 +48,13 @@ def _imported_modules(path: Path) -> set[str]:
     return names
 
 
+def test_import_scan_covers_every_package():
+    """The scan above reads every package of the port, ``ckpt`` included."""
+    packages = {p.parent.name for p in PORT_FILES}
+    assert {"core", "kernels", "serve", "ckpt", "data"} <= packages
+    assert ROOT / "src" / "repro_torch" / "ckpt" / "checkpoint.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_file_imports_neither_jax_nor_reference(path):
@@ -60,7 +68,8 @@ def test_every_port_module_imports_without_building():
     no nvcc) and loads no kernel library."""
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.serve.fleet" in names and "repro_torch.convert" in names
+    assert {"repro_torch.serve.fleet", "repro_torch.serve.engine",
+            "repro_torch.ckpt.checkpoint", "repro_torch.convert"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert build._lib is None
@@ -150,3 +159,56 @@ def test_fused_wrappers_dispatch_on_tensor_device_only():
             ops.encode_score_fused(params, codes.to("meta"), cfg, cls)
         with pytest.raises(ValueError, match="unsupported devices"):
             ops.encode_score_fused(params, codes, cfg, cls.to("meta"))
+
+
+def _small_bank(device="cpu"):
+    cfg = HDCConfig(dim=256, channels=4, window=32, temporal_threshold=3)
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 64, (1, 4 * 32, 4), np.uint8)
+    labels = np.asarray([[0, 1, 0, 1]])
+    pipe = HDCPipeline.init(torch.Generator().manual_seed(0), cfg, device=device)
+    return {"p": pipe.train_one_shot(codes, labels)}
+
+
+@pytest.mark.parametrize("kind", ["engine", "session", "fleet"])
+def test_serving_objects_without_a_card_raise(monkeypatch, kind):
+    """Without a card, a bank built with ``device=None`` raises at its
+    pipelines, so no engine, session or fleet is built on the CPU behind
+    the caller's back; they have no device argument of their own and run
+    where their pipelines lie."""
+    from repro_torch.serve.engine import SeizureSession, ServingEngine
+    from repro_torch.serve.fleet import StreamingFleet
+
+    build_obj = {"engine": lambda bank: ServingEngine(bank),
+                 "session": lambda bank: SeizureSession(bank["p"]),
+                 "fleet": lambda bank: StreamingFleet(bank, ["p"])}[kind]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_obj(_small_bank(device=None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fields = {"dim": 256, "channels": 4, "window": 32}
+        build_obj({"p": convert.pipeline_from_arrays(
+            fields, np.zeros((4, 64, 8), np.uint8), np.zeros((4, 8), np.uint8),
+            class_hvs=np.zeros((2, 8), np.uint32))})
+    obj = build_obj(_small_bank())
+    assert obj.device.type == "cpu" if kind != "session" else obj.class_hvs.is_cpu
+
+
+def test_engine_and_session_dispatch_on_tensor_device_only():
+    """On CPU tensors the engine and the session reach the kernels' plain
+    versions and count no launch; on another device they are refused,
+    never moved."""
+    from repro_torch.serve.engine import SeizureSession, ServingEngine
+
+    bank = _small_bank()
+    codes = np.zeros((2 * 32, 4), np.uint8)
+    before = (am_search.launches, fleet_counts_kernel.launches, encoder.launches)
+    (dec,) = ServingEngine(bank).serve([("p", codes)])
+    assert dec.scores.shape == (2, 2)
+    assert len(SeizureSession(bank["p"]).push(codes)) == 2
+    assert (am_search.launches, fleet_counts_kernel.launches, encoder.launches) == before
+    meta = {"p": bank["p"].to("meta")}
+    with pytest.raises(ValueError, match="unsupported devices"):
+        ServingEngine(meta).serve([("p", codes)])
+    with pytest.raises(ValueError, match="unsupported devices"):
+        SeizureSession(meta["p"]).push(codes)
