@@ -15,7 +15,8 @@ Phases (one line each, any failure exits non-zero):
    alphabet (narrowed table slabs); for ``hdc_encoder`` each of its paths
    (both modes at the main shape, S = 7, seg_len 48, D = 2048, windows 40
    and 48, spatial thresholds 0, 1, 2, 3, 5, C and C + 1, out-of-alphabet
-   codes, a table too large for shared memory) and for ``lbp`` 7 and 65
+   codes, a table too large for shared memory), for ``hdc_fleet`` also the
+   elastic fleet's tile (S = 256, with and without a mask), and for ``lbp`` 7 and 65
    channels (exact equality: all integer or bit arithmetic), with
    CUDA-event times (as the host issues the calls; beside it the device
    time, the calls queued behind a device-side sleep so that the host's
@@ -50,6 +51,7 @@ Phases (one line each, any failure exits non-zero):
    encoder kernel once, the standalone AM kernel each epoch) for every
    patient, detection before and after, patient 0's fit against the CPU and
    ``epochs=0`` against ``train_one_shot``; a 1024-session adaptive fleet
+   (one capacity tile, as every fixed fleet of phases 4-8)
    over the retrained bank (4 rounds of 256 cycles and a ragged round, each
    followed by ``adapt`` with each session's true label, ``-1`` for every
    fourth), its first 32 sessions against a CPU fleet and 4 against
@@ -58,7 +60,20 @@ Phases (one line each, any failure exits non-zero):
    sessions on the card (the fleet kernel at S = 1) on ragged chunks
    against a fleet, one snapshot resumed on the CPU; and one
    ``ServingEngine.serve`` of 16 held-out records (the fleet kernel, one
-   frame a session) against each patient's ``infer``.
+   frame a session) against each patient's ``infer``;
+9. the elastic fleet (``ElasticFleet``, tiles of 256, at most 4, queue of
+   64, channel masking) on phase 8's bank: a seeded churn schedule rises to
+   1024 live sessions (three spills, one fleet-kernel launch a tile a
+   round), offers past capacity (queued, shed), quarantines two electrodes
+   on 64 sessions, evicts about a tenth a round with snapshots readmitted
+   the round after, adapts every other round (once while overloaded and
+   shed), saves every two rounds (incremental: clean tiles hard-linked),
+   recedes and compacts; crash recovery from the second-to-last checkpoint
+   (``from_checkpoint`` + ``replay``, every replayed decision equal); 32
+   streams followed through their whole life, two masked, against a CPU
+   elastic fleet replaying their events.  Host-clock times of admit,
+   evict, spill, compact, rounds at 256-1024 live sessions, saves,
+   ``from_checkpoint`` and ``replay``.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -106,6 +121,17 @@ DENSE_ADAPT_SESSIONS = 64
 DENSE_ADAPT_ROUNDS = 2
 SESSION_PUSHES = 20     # 256-cycle pushes timed on one session
 SERVE_REPS = 5
+# phase 9: the elastic fleet
+ELASTIC_TILE = 256
+ELASTIC_MAX_TILES = 4
+ELASTIC_QUEUE = 64
+ELASTIC_RISE_ROUNDS = 5  # rounds at each of 256, 512, 768 and 1024 live sessions
+                         # (the last at 1024 profiled)
+ELASTIC_OFFERS = 80      # arrivals past capacity: 64 queued, the rest shed
+ELASTIC_CHURN_ROUNDS = 5
+ELASTIC_EVICT = 0.10     # the share of live sessions evicted a churn round
+ELASTIC_MASKED = 64      # sessions with two electrodes quarantined
+ELASTIC_FOLLOW = 32      # streams held against a CPU elastic fleet
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # 32-bit rate outside the tensor cores, used for the integer/bit operations
@@ -133,7 +159,11 @@ PATH_KERNELS = {
     "dense": ("dense_hdc", "hdc_am", "hdc_fleet", "am_epilogue_dense"),
     "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
     "online": ("hdc_encoder", "hdc_am", "hdc_fleet"),
+    "elastic": ("hdc_fleet",),
 }
+
+
+CARD = "not read"       # nvidia-smi's name and power limit, read in phase 1
 
 
 def log(msg: str) -> None:
@@ -420,18 +450,20 @@ def check_kernels(shapes: dict) -> KernelCheck:
     # lower bound.
 
     # hdc_fleet: tables (P, C, K, W), codes (S, T32, C) -> (S, K1, D); the
-    # other cases are ragged (random fill levels, lengths 0 to t)
+    # other cases are ragged (random fill levels, lengths 0 to t); "tile" is
+    # a steady round at the elastic fleet's tile shape (S = 256)
     modes = {}
     for case, (p, s, t, c, k, w, window) in (("main", shapes["fleet"]),
                                             ("odd", (3, 5, 96, 33, 8, 5, 32)),
                                             ("wide", (3, 6, 96, 200, 16, 4, 32)),
                                             ("wider", (2, 5, 64, 300, 8, 2, 32)),
-                                            ("k256", (2, 5, 64, 20, 256, 32, 32))):
+                                            ("k256", (2, 5, 64, 20, 256, 32, 32)),
+                                            ("tile", shapes["fleet_tile"])):
         tables = _rand_words(g, p, c, k, w)
         owner = torch.randint(0, p, (s,), generator=g, dtype=torch.int32).cuda()
         codes = torch.randint(0, min(k + 4, 256), (s, t, c), generator=g,
                               dtype=torch.uint8).cuda()
-        if case == "main":  # a steady round: every session streams t cycles
+        if case in ("main", "tile"):  # a steady round: every session streams t cycles
             filled = torch.zeros(s, dtype=torch.int32).cuda()
             lengths = torch.full((s,), t, dtype=torch.int32).cuda()
         else:               # ragged: random fill levels, lengths from 0 to t
@@ -734,6 +766,7 @@ def serve_fleet(tag: str, res: dict, sessions: int, steady_rounds: int,
     n_pat = len(bank)
     owners = [list(bank)[i % n_pat] for i in range(sessions)]
     fleet = StreamingFleet(bank, owners)
+    expect(fleet.n_tiles == 1, f"{tag}: {sessions} sessions took {fleet.n_tiles} tiles, not one")
     rng = np.random.default_rng(SEED)
     host_codes = [r[1].cpu().numpy() for r in res["records"]]
     need = 256 * (2 + steady_rounds + int(profile)) + 300
@@ -1116,6 +1149,7 @@ def adaptive_fleet(tag: str, bank: dict, records, sessions: int, rounds: int,
     frames = -(-sum(int(n.max()) for k, n in steps if k == "push") // 256)
     streams, frame_labels = _adapt_streams(bank, records, sessions, frames, rng)
     fleet = StreamingFleet(bank, owners)
+    expect(fleet.n_tiles == 1, f"{tag}: {sessions} sessions took {fleet.n_tiles} tiles, not one")
     cpu_fleet = StreamingFleet({n: p.to("cpu") for n, p in bank.items()}, owners[:compare])
     loop = [SeizureSession(bank[o]) for o in owners[:loops]]
     resumed, out = None, {"adapt_ms": [], "applied": [], "sessions": sessions}
@@ -1291,6 +1325,388 @@ def engine_serve(tag: str, bank: dict, records) -> dict:
     return {"serve_ms": med, "serve_ms_all": serve_ms, "fleet_launches": per_serve}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the elastic fleet
+# ---------------------------------------------------------------------------
+
+def _same_snapshots(a, b) -> bool:
+    return (all(getattr(a, f) == getattr(b, f)
+                for f in ("patient_id", "filled", "frame_index", "has_frame"))
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("counts", "class_rows", "am_counts", "am_n", "last_frame",
+                              "last_scores", "channel_mask")))
+
+
+def _inodes(path: str) -> dict:
+    import os
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        return {leaf["key"]: os.stat(os.path.join(path, leaf["file"])).st_ino
+                for leaf in json.load(f)["leaves"]}
+
+
+class _Churn:
+    """Phase 9's bookkeeping: each stream (one implant's record) with its
+    patient, record, first frame and cycles pushed, its session on the card
+    and, for the followed streams, on the CPU; arrivals queued on the card
+    (FIFO, as the fleet drains them) and streams parked with their
+    eviction snapshots."""
+
+    def __init__(self, fleet, cpu, bank: dict, records, rng, rounds: int):
+        self.fleet, self.cpu, self.rng = fleet, cpu, rng
+        self.names = list(bank)
+        rec_of = {f"patient{r[0]}": r for r in records}
+        self.host = {n: rec_of[n][1].cpu().numpy() for n in self.names}
+        self.labels = {n: rec_of[n][2] for n in self.names}
+        self.rounds = rounds
+        self.streams: dict[int, list] = {}
+        self.sid_of: dict[int, int] = {}      # stream -> card session id
+        self.stream_of: dict[int, int] = {}   # card session id -> stream
+        self.cpu_sid: dict[int, int] = {}     # followed stream -> CPU session id
+        self.followed: set[int] = set()
+        self.pending: list[int] = []          # queued on the card, oldest first
+        self.parked: dict[int, tuple] = {}    # stream -> (card snapshot, CPU snapshot)
+        self.compared = 0
+        self.readmitted_followed: set[int] = set()
+
+    def new_stream(self, s: int) -> str:
+        name = self.names[s % len(self.names)]
+        n_rec, cycles = self.host[name].shape[:2]
+        f0 = int(self.rng.integers(0, cycles // 256 - self.rounds - 2))
+        self.streams[s] = [name, 1 + int(self.rng.integers(0, n_rec - 1)), f0, 0]
+        return name
+
+    def chunk(self, s: int) -> np.ndarray:
+        name, rec, f0, pos = self.streams[s]
+        return self.host[name][rec, f0 * 256 + pos:f0 * 256 + pos + 256]
+
+    def label(self, s: int) -> int:
+        """True label of the stream's last frame; -1 (no feedback) for
+        every fourth stream and before the first frame."""
+        name, rec, f0, pos = self.streams[s]
+        if s % 4 == 3 or pos < 256:
+            return -1
+        return int(self.labels[name][rec, f0 + pos // 256 - 1])
+
+    def placed(self, s: int, sid: int, snaps=None) -> None:
+        self.sid_of[s], self.stream_of[sid] = sid, s
+        if s in self.followed:
+            pid = self.streams[s][0]
+            self.cpu_sid[s] = self.cpu.admit(pid, snapshot=None if snaps is None else snaps[1])
+
+    def drained(self) -> None:
+        """Map the sessions the card admitted from its queue (after an
+        eviction) to the pending streams, oldest first."""
+        for sid in sorted(set(self.fleet.sessions) - set(self.stream_of)):
+            s = self.pending.pop(0)
+            self.placed(s, sid, self.parked.pop(s, None))
+
+    def offer(self, s: int, snaps=None) -> str:
+        verdict, sid = self.fleet.offer(self.streams[s][0],
+                                        snapshot=None if snaps is None else snaps[0])
+        if verdict == "admitted":
+            self.placed(s, sid, snaps)
+        elif verdict == "queued":
+            self.pending.append(s)
+            if snaps is not None:
+                self.parked[s] = snaps
+        return verdict
+
+    def evict(self, sids, with_state: bool) -> float:
+        t0 = time.perf_counter()
+        snaps = self.fleet.evict(sids, with_state=with_state)
+        ms = (time.perf_counter() - t0) * 1e3
+        for sid in sids:
+            s = self.stream_of.pop(sid)
+            del self.sid_of[s]
+            if s in self.followed:
+                cpu_snap = self.cpu.evict([self.cpu_sid.pop(s)], with_state=with_state)
+                if with_state:
+                    expect(_same_snapshots(snaps[sid], list(cpu_snap.values())[0]),
+                           f"stream {s}: the card's eviction snapshot differs from the CPU's")
+                    self.parked[s] = (snaps[sid], list(cpu_snap.values())[0])
+            elif with_state:
+                self.parked[s] = (snaps[sid], None)
+        self.drained()
+        return ms
+
+    def push(self, sids) -> tuple[dict, float]:
+        """One round of 256 cycles for ``sids`` on the card, the followed
+        ones also on the CPU; decisions held equal."""
+        chunks = {sid: self.chunk(self.stream_of[sid]) for sid in sids}
+        t0 = time.perf_counter()
+        dec = self.fleet.push_sessions(chunks)
+        ms = (time.perf_counter() - t0) * 1e3
+        follow = [self.stream_of[sid] for sid in sids if self.stream_of[sid] in self.cpu_sid]
+        cpu_dec = self.cpu.push_sessions({self.cpu_sid[s]: chunks[self.sid_of[s]]
+                                          for s in follow})
+        for s in follow:
+            expect(_same_decisions(dec[self.sid_of[s]], cpu_dec[self.cpu_sid[s]]),
+                   f"stream {s}: the elastic fleet differs from the CPU plain fleet")
+            self.compared += len(dec[self.sid_of[s]])
+        for sid in sids:
+            self.streams[self.stream_of[sid]][3] += 256
+        return dec, ms
+
+    def adapt(self) -> tuple[dict, bool]:
+        labels = {sid: self.label(s) for sid, s in self.stream_of.items()}
+        labels = {sid: v for sid, v in labels.items() if v >= 0}
+        shed = self.fleet.overloaded
+        verdict = self.fleet.adapt(labels)
+        follow = {self.cpu_sid[s]: labels[self.sid_of[s]] for s in self.cpu_sid
+                  if self.sid_of[s] in labels}
+        if shed:
+            expect(not any(verdict.values()), "an adapt while overloaded applied updates")
+        else:
+            cpu_v = self.cpu.adapt(follow)
+            expect(all(verdict[self.sid_of[s]] == cpu_v[self.cpu_sid[s]]
+                       for s in self.cpu_sid if self.sid_of[s] in labels),
+                   "the elastic fleet's adapt differs from the CPU plain fleet's")
+        return verdict, shed
+
+
+def elastic_phase(tag: str, bank: dict, records) -> dict:
+    """The elastic fleet over ``bank``: a churn schedule drawn from a seeded
+    generator (the wave rises to 1024 live sessions over four tiles, then
+    past capacity into the queue and shed; eviction of about a tenth a
+    round with snapshots readmitted the round after; two electrodes
+    quarantined on 64 sessions; ``adapt`` every other round, once while
+    overloaded; ``save`` every two rounds; the wave recedes and ``compact``
+    drops tiles), crash recovery from the second-to-last checkpoint
+    (``from_checkpoint`` + ``replay``, every replayed decision equal), and
+    32 streams followed through their whole life, two masked, against a CPU
+    elastic fleet replaying their events."""
+    import tempfile
+
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.serve.lifecycle import ElasticFleet
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    kw = dict(tile=ELASTIC_TILE, max_tiles=ELASTIC_MAX_TILES, queue_limit=ELASTIC_QUEUE,
+              log_rounds=4096, channel_masking=True)
+    fleet = ElasticFleet(bank, **kw)
+    cpu = ElasticFleet({n: p.to("cpu") for n, p in bank.items()}, tile=ELASTIC_FOLLOW,
+                       max_tiles=2, channel_masking=True)
+    rise = 4 * ELASTIC_RISE_ROUNDS
+    n_rounds = rise + 1 + ELASTIC_CHURN_ROUNDS + 4
+    ch = _Churn(fleet, cpu, bank, records, rng, n_rounds)
+    ch.followed = set(range(ELASTIC_FOLLOW))
+    spill_ms: list[float] = []
+    spill = fleet._spill_tile
+
+    def timed_spill():
+        t0 = time.perf_counter()
+        k = spill()
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+        return k
+
+    fleet._spill_tile = timed_spill
+    out = {"round_ms": {}, "admit_ms": [], "evict_ms": [], "save_ms": [], "linked": [],
+           "saves": [], "round_launches": []}
+    push_results: dict[int, dict] = {}
+    cursors: dict[int, int] = {}
+    r = 0
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+
+    def one_round(sids=None, adapt=True, profile=False):
+        nonlocal r
+        sids = sorted(fleet.sessions) if sids is None else sids
+        op = fleet.op_id
+        before = fleet_counts_kernel.launches
+        if profile:  # the push alone, under the profiler: device time by kernel
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                dec, ms = ch.push(sids)
+                torch.cuda.synchronize()
+            busy, dev_us = device_busy(prof)
+            out["profiled"] = {"live": len(sids), "tiles": fleet.n_tiles, "wall_ms": ms,
+                               "busy_ms": busy, "top": sorted(
+                                   dev_us.items(), key=lambda kv: -kv[1])[:6]}
+        else:
+            dec, ms = ch.push(sids)
+        torch.cuda.synchronize()
+        launched = fleet_counts_kernel.launches - before
+        expect(launched == fleet.n_tiles,
+               f"{tag}: a round of 256 cycles over {fleet.n_tiles} tiles launched the "
+               f"fleet kernel {launched} times")
+        out["round_launches"].append(launched)
+        push_results[op] = dec
+        if adapt and r % 2 == 0:
+            ch.adapt()
+        if r % 2 == 1:
+            save()
+        r += 1
+        return ms
+
+    def save():
+        t0 = time.perf_counter()
+        path = fleet.save(root)
+        out["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        step = int(path[-8:])
+        cursors[step] = fleet.op_id
+        linked = 0
+        if step > 0:
+            prev, cur = _inodes(path[:-8] + f"{step - 1:08d}"), _inodes(path)
+            linked = sum(prev.get(k) == v for k, v in cur.items())
+        out["linked"].append(linked)
+        out["saves"].append({"step": step, "tiles": fleet.n_tiles, "linked": linked,
+                             "ms": out["save_ms"][-1]})
+        return step
+
+    # the wave rises: 256 admissions, then rounds, four times (three spills)
+    s_next = 0
+    for level in range(1, 5):
+        while len(fleet.sessions) < level * ELASTIC_TILE:
+            ch.new_stream(s_next)
+            t0 = time.perf_counter()
+            sid = fleet.admit(ch.streams[s_next][0])
+            out["admit_ms"].append((time.perf_counter() - t0) * 1e3)
+            ch.placed(s_next, sid)
+            s_next += 1
+        out["round_ms"][level * ELASTIC_TILE] = [one_round() for _ in range(
+            ELASTIC_RISE_ROUNDS - (level == 4))]
+    one_round(profile=True)
+    pr = out["profiled"]
+    log(f"[{tag}] profiled round at {pr['live']} live sessions over {pr['tiles']} tiles "
+        f"on {CARD}: push {pr['wall_ms']:.3f} ms host clock, device busy "
+        f"{pr['busy_ms']:.3f} ms ({100 * (1 - pr['busy_ms'] / pr['wall_ms']):.1f}% idle; "
+        f"{100 * (1 - pr['busy_ms'] / np.median(out['round_ms'][4 * ELASTIC_TILE])):.1f}% "
+        f"of the unprofiled median round); "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in pr["top"]))
+    expect(fleet.n_tiles == 4 and fleet.capacity == 4 * ELASTIC_TILE,
+           f"{tag}: 1024 sessions did not spill to four tiles")
+    # past capacity: arrivals queue, then are shed
+    verdicts = []
+    for _ in range(ELASTIC_OFFERS):
+        ch.new_stream(s_next)
+        verdicts.append(ch.offer(s_next))
+        s_next += 1
+    expect(verdicts.count("queued") == ELASTIC_QUEUE and "shed" in verdicts,
+           f"{tag}: offers past capacity gave {set(verdicts)}")
+    # two electrodes quarantined on 64 sessions, two of them followed
+    live = sorted(fleet.sessions)
+    masked = [ch.sid_of[0], ch.sid_of[5]] + [
+        int(x) for x in rng.choice([s for s in live if ch.stream_of[s] >= ELASTIC_FOLLOW],
+                                   ELASTIC_MASKED - 2, replace=False)]
+    channels = next(iter(bank.values())).cfg.channels
+    mask = np.ones((ELASTIC_MASKED, channels), np.uint8)
+    for row in mask:
+        row[rng.choice(channels, 2, replace=False)] = 0
+    fleet.set_channel_mask(mask, sessions=[fleet.slot_of(sid) for sid in masked])
+    cpu.set_channel_mask(mask[:2], sessions=[cpu.slot_of(ch.cpu_sid[s]) for s in (0, 5)])
+    shed_before = fleet.stats["adapt_shed"]
+    expect(fleet.overloaded and r % 2 == 0, f"{tag}: the overloaded round does not adapt")
+    out["round_ms"]["overloaded"] = one_round()
+    expect(fleet.stats["adapt_shed"] == shed_before + 1, f"{tag}: adapt was not shed")
+    # churn: each round evicts about a tenth with state (the first drains
+    # the queue) and readmits the snapshots of the round before, then pushes
+    parked_prev: list[int] = []
+    follow_evict = {0: [0, 1], 1: [5, 2, 3], 2: [4, 6]}
+    for c in range(ELASTIC_CHURN_ROUNDS):
+        live = sorted(fleet.sessions)
+        forced = [ch.sid_of[s] for s in follow_evict.get(c, []) if s in ch.sid_of]
+        others = [s for s in live if ch.stream_of[s] >= ELASTIC_FOLLOW]
+        pick = forced + [int(x) for x in rng.choice(
+            others, int(ELASTIC_EVICT * len(live)) - len(forced), replace=False)]
+        parked_now = [ch.stream_of[sid] for sid in pick]
+        out["evict_ms"].append((ch.evict(pick, with_state=True), len(pick)))
+        for s in sorted(parked_prev, key=lambda s: s not in ch.followed):
+            if s in ch.parked and s not in ch.pending:
+                snaps = ch.parked.pop(s)
+                if ch.offer(s, snaps) == "admitted" and s in ch.followed:
+                    ch.readmitted_followed.add(s)
+        parked_prev = parked_now
+        out["round_ms"].setdefault("churn", []).append(one_round())
+    expect({0, 5} <= ch.readmitted_followed and len(ch.readmitted_followed) >= 4,
+           f"{tag}: followed streams readmitted: {sorted(ch.readmitted_followed)}")
+    # the wave recedes right after a save: most sessions leave, and those on
+    # the trailing tiles idle for two rounds, so the next save links them
+    if r % 2 == 1:
+        out["round_ms"]["churn"].append(one_round())
+    live = sorted(fleet.sessions)
+    leaving = [s for s in live if ch.stream_of[s] not in ch.cpu_sid]
+    leaving = [int(x) for x in rng.choice(leaving, int(0.65 * len(live)), replace=False)]
+    out["evict_ms"].append((ch.evict(leaving, with_state=False), len(leaving)))
+    quiet = [sid for sid in sorted(fleet.sessions) if fleet.slot_of(sid) < 2 * ELASTIC_TILE]
+    out["round_ms"]["quiet"] = [one_round(quiet, adapt=False) for _ in range(2)]
+    expect(out["linked"][-1] > 0, f"{tag}: the save after quiet rounds linked no file")
+    moved = sum(fleet.slot_of(sid) >= ELASTIC_TILE * (fleet.n_tiles - 2)
+                for sid in fleet.sessions)   # the live sessions of the last two tiles
+    t0 = time.perf_counter()
+    dropped = fleet.compact()
+    out["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    expect(dropped >= 1 and fleet.n_tiles < 4, f"{tag}: compact dropped {dropped} tiles")
+    out["round_ms"]["compacted"] = [one_round() for _ in range(2)]
+
+    # crash recovery from the second-to-last checkpoint
+    steps = sorted(cursors)
+    step, cursor = steps[-2], cursors[steps[-2]]
+    events = fleet.events_since(cursor)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rebuilt = ElasticFleet.from_checkpoint(bank, root, step=step, **kw)
+    torch.cuda.synchronize()
+    out["from_checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    replayed = rebuilt.replay(events)
+    torch.cuda.synchronize()
+    out["replay_ms"] = (time.perf_counter() - t0) * 1e3
+    n_replayed = 0
+    for op, res in replayed.items():
+        if op in push_results:
+            want = push_results[op]
+            expect(res.keys() == want.keys()
+                   and all(_same_decisions(res[sid], want[sid]) for sid in want),
+                   f"{tag}: a replayed decision differs from the uninterrupted fleet's")
+            n_replayed += sum(len(d) for d in want.values())
+    expect(rebuilt.sessions == fleet.sessions and rebuilt.op_id == fleet.op_id
+           and rebuilt.stats == fleet.stats
+           and np.array_equal(rebuilt.fill_levels, fleet.fill_levels)
+           and np.array_equal(rebuilt.channel_masks, fleet.channel_masks),
+           f"{tag}: the recovered fleet's sessions, cursor, stats or masks differ")
+    expect(n_replayed > 0, f"{tag}: the replay carried no decision")
+    tmp.cleanup()
+    out.update(spill_ms=spill_ms, stats=fleet.stats, compared=ch.compared,
+               replayed_events=len(events), replayed_decisions=n_replayed,
+               followed_readmitted=sorted(ch.readmitted_followed), checkpoint_step=step,
+               tiles_after_compact=fleet.n_tiles)
+    med = {k: float(np.median(v)) for k, v in out["round_ms"].items()}
+    evict_per = [ms / n for ms, n in out["evict_ms"]]
+    log(f"[{tag}] churn: stats {fleet.stats}; {len(events)} events after the cursor of "
+        f"step {step}; the fleet kernel launched once a tile each round "
+        f"({sorted(set(out['round_launches']))} a round); followed {ELASTIC_FOLLOW} streams "
+        f"(2 masked), {ch.compared} decisions equal to a CPU elastic fleet, readmitted "
+        f"{sorted(ch.readmitted_followed)}; {n_replayed} replayed decisions equal")
+    log(f"[{tag}] host-clock ms on {CARD}: admit median "
+        f"{np.median(out['admit_ms']):.3f} (max {max(out['admit_ms']):.3f}); "
+        f"_spill_tile {', '.join(f'{x:.3f}' for x in spill_ms)}; evict(with_state) "
+        f"{', '.join(f'{ms:.3f} ({n})' for ms, n in out['evict_ms'][:-1])}, "
+        f"{np.median(evict_per[:-1]):.3f} a session; compact {out['compact_ms']:.3f} "
+        f"({dropped} tiles dropped, {moved} sessions on the last two tiles); from_checkpoint {out['from_checkpoint_ms']:.3f}; "
+        f"replay {out['replay_ms']:.3f} ({len(events)} events)")
+    log(f"[{tag}] round of 256 cycles, median host-clock ms on {CARD}: "
+        + "; ".join(f"{k} live {med[k]:.3f}" for k in range(ELASTIC_TILE, 5 * ELASTIC_TILE, ELASTIC_TILE))
+        + f"; overloaded {med['overloaded']:.3f}; churn {med['churn']:.3f}; quiet (half "
+        f"the tiles idle) {med['quiet']:.3f}; after compaction {med['compacted']:.3f} "
+        f"(all: {json.dumps({str(k): [round(x, 3) for x in np.atleast_1d(v)] for k, v in out['round_ms'].items()})})")
+    full4 = [v["ms"] for v in out["saves"] if v["tiles"] == 4 and v["linked"] == 0]
+    linked4 = [v for v in out["saves"] if v["tiles"] == 4 and v["linked"] > 0]
+    out["save_full4_ms"] = float(np.median(full4))
+    out["save_linked4"] = linked4
+    log(f"[{tag}] save ms on {CARD}: four tiles written, median {out['save_full4_ms']:.3f} "
+        f"over {len(full4)} saves; four tiles with files linked: "
+        + ", ".join(f"{v['ms']:.3f} ({v['linked']} of 36 leaves linked)" for v in linked4)
+        + f"; every save (step, tiles, leaves linked, ms): "
+        + ", ".join(f"({v['step']}, {v['tiles']}, {v['linked']}, {v['ms']:.3f})"
+                    for v in out["saves"]))
+    out["round_median_ms"] = med
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 9 took {out['phase_s']:.1f} s")
+    return out
+
+
 class Launches:
     """Reads each path's kernel launches, counted from zero."""
 
@@ -1334,8 +1750,9 @@ def main() -> int:
                          "dense_hdc": dense_ops.dense_encoder,
                          "am_epilogue_sparse": enc_ops.encode_score_fused,
                          "am_epilogue_dense": dense_ops.encode_score_fused})
+    global CARD
     t_start = time.perf_counter()
-    environment()
+    CARD = environment()
     build_kernels()
 
     t0 = time.perf_counter()
@@ -1350,6 +1767,7 @@ def main() -> int:
         "encoder": (SEIZURES - 1, frames, 256, 64, 8, 128),
         "am": ((SEIZURES - 1) * frames, 2, 32),
         "fleet": (PATIENTS, SESSIONS, 256, 64, 64, 32, 256),
+        "fleet_tile": (PATIENTS, ELASTIC_TILE, 256, 64, 64, 32, 256),
         "dense": ((SEIZURES - 1) * frames, 256, 64, 64, 32),
     }
     kc = check_kernels(shapes)
@@ -1401,6 +1819,11 @@ def main() -> int:
     launches.stop("online")
     online.update(fit_epoch_ms("online", sparse))
 
+    # phase 9: the elastic fleet on the fit_iterative bank of phase 8
+    launches.start()
+    elastic = elastic_phase("elastic", fit_bank, records)
+    launches.stop("elastic")
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kc.rows[name]
@@ -1421,6 +1844,12 @@ def main() -> int:
         rows[-1]["path_launches"] = {p: c[name] for p, c in launches.paths.items()}
     log("[online] " + json.dumps({k: v for k, v in online.items()
                                   if not isinstance(v, list) or k == "applied"}))
+    log("[elastic] " + json.dumps({k: v for k, v in elastic.items()
+                                   if k in ("round_median_ms", "stats", "compact_ms",
+                                            "from_checkpoint_ms", "replay_ms", "saves",
+                                            "save_full4_ms",
+                                            "spill_ms", "compared", "replayed_decisions",
+                                            "profiled")}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

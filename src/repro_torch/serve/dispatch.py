@@ -9,7 +9,10 @@ cycle the spatial encode is a table gather + OR tree (or, for spatial
 thinning, the naive variant and dense, an adder tree + threshold or
 majority).  The per-patient tables stack along a leading axis and each
 stream gathers its rows through an ``owner`` index, so one launch serves
-any mix of patients.  Channel masks are not ported yet.
+any mix of patients.  A channel mask (per stream, 1 = live) drops
+quarantined electrodes from the bundle inside the fleet kernel;
+``effective_spatial_threshold`` and ``reduced_channel_config`` state what
+that equals: the pipeline with the dead electrodes physically absent.
 """
 
 from __future__ import annotations
@@ -83,6 +86,25 @@ def stack_bound_tables(pipes: Sequence[HDCPipeline]
             unique.append(bound_table(p.params, datapath_key(p.cfg)))
         rows.append(row_of[k])
     return torch.stack(unique), np.asarray(rows, np.int32)
+
+
+def effective_spatial_threshold(live: torch.Tensor, cfg: HDCConfig
+                                ) -> torch.Tensor:
+    """Thinning threshold renormalised to the live channel count:
+    ``ceil(spatial_threshold * live / channels)``, floored at 1; with every
+    channel live this is ``cfg.spatial_threshold``."""
+    live = live.to(torch.int32)
+    c = cfg.channels
+    return torch.clamp(torch.div(cfg.spatial_threshold * live + c - 1, c,
+                                 rounding_mode="floor"), min=1)
+
+
+def reduced_channel_config(cfg: HDCConfig, live: int) -> HDCConfig:
+    """The config of the reduced-channel oracle for a mask with ``live``
+    channels alive: the pipeline an implant with the dead electrodes
+    physically absent would run.  Masked encodes are bit-exact with it."""
+    thr = max(1, -(-cfg.spatial_threshold * live // cfg.channels))
+    return replace(cfg, channels=live, spatial_threshold=thr)
 
 
 def owner_spatial_encode(tables: torch.Tensor, owner: torch.Tensor,

@@ -1,40 +1,55 @@
-"""Streaming fleet: S concurrent sessions advanced by one device step
-(port of the core of ``repro.serve.fleet.StreamingFleet``).
+"""Streaming fleet: S concurrent sessions advanced by one device step a
+capacity tile (port of the core of ``repro.serve.fleet.StreamingFleet``).
 
-The fleet keeps S sessions in one device-resident ``FleetState``:
+The fleet keeps its sessions in device-resident ``FleetState``s, one per
+capacity tile:
 
 * ``counts``      (S, D) int32 — the stacked temporal accumulators,
 * ``filled``      (S,)   int32 — cycles accumulated toward each next frame,
 * ``frame_index`` (S,)   int32 — frames emitted so far,
 
 plus each session's class rows, its online counter file (``am_counts``,
-``am_n``) and its last emitted frame and scores.  One
-step advances all sessions over a padded (S, t_pad, channels) uint8 code
-batch: the fused fleet kernel gathers the pre-bound rows, bundles them
-(OR tree for ``sparse_compim``; adder tree with thinning for
-``spatial_thinning`` and ``sparse_naive``; channel majority for dense) and
-counts every frame slot of the step (``kernels/hdc_fleet``); the carried
-counts are added, frames are threshold-packed (dense: majority over the
-window) and scored against the session's class rows (plain tensor code, as
-in the reference).
+``am_n``) and its last emitted frame and scores.  One step advances one
+tile over a padded (tile_s, t_pad, channels) uint8 code batch: the fused
+fleet kernel gathers the pre-bound rows, bundles them (OR tree for
+``sparse_compim``; adder tree with thinning for ``spatial_thinning`` and
+``sparse_naive``; channel majority for dense) and counts every frame slot
+of the step (``kernels/hdc_fleet``); the carried counts are added, frames
+are threshold-packed (dense: majority over the window) and scored against
+the session's class rows (plain tensor code, as in the reference).
+
+Capacity tiles: sessions are provisioned in whole tiles of ``tile`` slots
+(``derive_tile``: the ``REPRO_FLEET_TILE`` override, else sized from the
+card's memory, else ``DEFAULT_TILE`` on the CPU), so ``state`` and the
+checkpoints carry the padded capacity; rows past ``n_sessions`` are phantom
+slots that push zero-length chunks and never emit or adapt.  A fleet
+smaller than a quarter tile keeps its exact size.  Every tile steps every
+round (one kernel launch a tile), and every tile lives on the bank's one
+device.
 
 Chunks may have any length per session (0 included).  Lengths are padded
 to the smallest bucket that fits, and a chunk longer than the largest
 bucket splits over several steps.  Ingest goes through a pinned host
-staging buffer per (slot, bucket), copied with ``non_blocking=True`` and
-double-buffered: a buffer is rewritten only after the step that read it
-has finished (a CUDA event recorded after that step).  The host keeps O(S)
-mirrors of ``filled``/``frame_index`` to route results without a sync;
-pushes never wait for the device, ``collect_decisions`` does (and so do
-``adapt``, ``save`` and ``restore``, which return host values).
+staging buffer per (tile, slot, bucket), copied with ``non_blocking=True``
+and double-buffered: a buffer is rewritten only after the step that read
+it has finished (a CUDA event recorded after that step).  The host keeps
+O(S) mirrors of ``filled``/``frame_index`` to route results without a
+sync; pushes never wait for the device, ``collect_decisions`` does (and so
+do ``adapt``, ``save`` and ``restore``, which return host values).
+
+``channel_masking=True`` carries a per-session (S, channels) electrode
+mask (1 = live) into the fleet kernel's mask operand: masked channels
+drop out of the spatial bundle with renormalised denominators.  The mask
+survives ``reset`` and rides ``save``'s manifest meta.  Without masking
+the step makes the kernel call it always made.
 
 ``adapt`` applies one gated online update to every session at once (plain
 torch, ``core/online.py``), and ``save``/``restore`` checkpoint the whole
 state mid-stream (``ckpt/checkpoint.py``).
 
-Decisions are bit-exact with the reference fleet.  Not ported yet: mesh
-placement, session tiles, AOT warm-up, elastic slots, fault injection, ECC,
-channel masking and stage probes.
+Decisions are bit-exact with the reference fleet.  Not ported: mesh
+placement, tiles spread over several cards, AOT warm-up, fault injection,
+ECC and stage probes.
 """
 
 from __future__ import annotations
@@ -51,16 +66,56 @@ import torch
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import hv, online
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+from repro_torch.device import resolve_device
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
 from repro_torch.serve import dispatch
 from repro_torch.serve.engine import FrameDecision, _pack_frames
 
 DEFAULT_BUCKETS = (32, 64, 128, 256)
+# sessions a device step on the CPU, where the device reports no memory
+DEFAULT_TILE = 256
+
+
+def derive_tile(cfg: HDCConfig, *, max_bucket: int = DEFAULT_BUCKETS[-1],
+                device=None) -> int:
+    """Sessions a tile for this device and geometry: ``REPRO_FLEET_TILE``
+    first (a power of two in [64, 4096]); on a CUDA device the largest
+    power of two whose per-session working set (streaming state, online AM
+    bank, staged codes, bit-plane temporaries) fills at most 1/16 of the
+    card's memory, clamped to [64, 4096]; on the CPU ``DEFAULT_TILE``.
+    ``device=None`` is the card (raises without one).
+    ``StreamingFleet(tile=...)`` bypasses all of this."""
+    env = os.environ.get("REPRO_FLEET_TILE", "")
+    if env:
+        try:
+            tile = int(env)
+        except ValueError:
+            raise ValueError(
+                f"REPRO_FLEET_TILE={env!r} is not an integer; expected a "
+                "power of two in [64, 4096]") from None
+        if not (64 <= tile <= 4096 and tile & (tile - 1) == 0):
+            raise ValueError(
+                f"REPRO_FLEET_TILE={env!r} must be a power of two in "
+                "[64, 4096] (the range derive_tile itself produces); use "
+                "StreamingFleet(tile=...) for out-of-range experiments")
+        return tile
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return DEFAULT_TILE
+    limit = torch.cuda.get_device_properties(device).total_memory
+    per_session = (
+        cfg.dim * 4 * (1 + cfg.n_classes)          # counts + online AM bank
+        + cfg.n_classes * cfg.words * 4            # class-HV rows
+        + max_bucket * cfg.channels                # staged uint8 codes
+        + 8 * max_bucket * cfg.words               # bit-plane temporaries
+    )
+    tile = max(64, min(4096, (int(limit) // 16) // max(per_session, 1)))
+    return 1 << (tile.bit_length() - 1)            # floor to a power of two
 
 
 @dataclass(frozen=True)
 class FleetState:
-    """Device state of all S sessions."""
+    """Device state of one tile's sessions (or, from ``state``, of all)."""
 
     counts: torch.Tensor       # (S, D) int32 temporal accumulators
     filled: torch.Tensor       # (S,) int32 cycles toward each next frame
@@ -77,6 +132,14 @@ class FleetState:
 _PACKED_LEAVES = ("class_rows", "last_frame")
 
 
+def _host_state(state: FleetState) -> FleetState:
+    """A state's leaves as host numpy arrays, packed words as uint32."""
+    return FleetState(**{
+        f.name: (hv.to_u32(getattr(state, f.name)) if f.name in _PACKED_LEAVES
+                 else getattr(state, f.name).cpu().numpy())
+        for f in fields(FleetState)})
+
+
 @dataclass(frozen=True)
 class FleetOut:
     """Raw step outputs: one row per potential frame slot (K per step)."""
@@ -87,24 +150,27 @@ class FleetOut:
 
 @dataclass(frozen=True)
 class FleetRound:
-    """One step's device outputs plus the host schedule to read them:
-    ``(session, slot)`` with ``slot < n_emit[session]`` are real emissions
-    with frame index ``frame_base[session] + slot``."""
+    """One step's device outputs, one ``FleetOut`` a tile, plus the host
+    schedule to read them: ``(session, slot)`` with ``slot <
+    n_emit[session]`` are real emissions with frame index
+    ``frame_base[session] + slot``."""
 
-    out: FleetOut
-    n_emit: np.ndarray      # (S,) frames emitted this round
-    frame_base: np.ndarray  # (S,) frame index of each session's slot 0
+    tiles: tuple[FleetOut, ...]  # per-tile (tile_s, K, ...) outputs
+    n_emit: np.ndarray           # (S,) frames emitted this round
+    frame_base: np.ndarray       # (S,) frame index of each session's slot 0
 
 
 def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
                 thresholds: torch.Tensor, chunk: torch.Tensor,
-                lengths: torch.Tensor, *, cfg: HDCConfig
-                ) -> tuple[FleetState, FleetOut]:
-    """Advance all S sessions by one padded chunk batch: chunk (S, t_pad,
-    channels) uint8 raw codes, lengths (S,) int32 valid cycles."""
+                lengths: torch.Tensor, chan_mask: torch.Tensor | None = None,
+                *, cfg: HDCConfig) -> tuple[FleetState, FleetOut]:
+    """Advance one tile's S sessions by one padded chunk batch: chunk (S,
+    t_pad, channels) uint8 raw codes, lengths (S,) int32 valid cycles,
+    optional chan_mask (S, channels) int32 (1 = live)."""
     s = chunk.shape[0]
     seg = fleet_ops.fleet_counts_fused(tables, owner, chunk, state.filled,
-                                       lengths, cfg)      # (S, K+1, D)
+                                       lengths, cfg,
+                                       chan_mask=chan_mask)  # (S, K+1, D)
     n_emit = torch.div(state.filled + lengths, cfg.window,
                        rounding_mode="floor")
     # the carried accumulator belongs to the FIRST completed frame when the
@@ -133,10 +199,10 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
 def _fleet_adapt(state: FleetState, labels: torch.Tensor, margin: float,
                  density: torch.Tensor, *, cfg: HDCConfig
                  ) -> tuple[FleetState, torch.Tensor]:
-    """One gated online update for all S sessions: labels (S,) the true
-    class of each session's last emitted frame (-1 = no feedback), density
-    (S,) float32 each session's ``class_density``.  Sessions whose gate
-    fires get their counter files updated and their class rows
+    """One gated online update for one tile's S sessions: labels (S,) the
+    true class of each session's last emitted frame (-1 = no feedback),
+    density (S,) float32 each session's ``class_density``.  Sessions whose
+    gate fires get their counter files updated and their class rows
     re-thresholded; the others pass through unchanged.  Returns (state,
     applied (S,) bool)."""
     bits = hv.unpack_bits(state.last_frame, cfg.dim)            # (S, D)
@@ -149,20 +215,43 @@ def _fleet_adapt(state: FleetState, labels: torch.Tensor, margin: float,
                    class_rows=class_rows), applied
 
 
+def _mask_meta(mask_h: np.ndarray) -> dict:
+    """A channel-mask manifest entry: the (rows, channels) shape and the
+    uint8 bytes as hex."""
+    return {"shape": list(mask_h.shape), "hex": mask_h.tobytes().hex()}
+
+
+def _mask_from_meta(cm: dict | None, shape: tuple[int, int]) -> np.ndarray:
+    """Decode a ``_mask_meta`` entry that must have ``shape``; all-live when
+    the checkpoint carries none."""
+    if cm is None:
+        return np.ones(shape, np.uint8)
+    got = tuple(int(v) for v in cm["shape"])
+    if got != tuple(shape):
+        raise ValueError(
+            f"checkpoint channel_mask is {got}; this fleet provisions "
+            f"{tuple(shape)}")
+    return np.frombuffer(bytes.fromhex(cm["hex"]), np.uint8).reshape(got).copy()
+
+
 class StreamingFleet:
-    """S concurrent streaming seizure sessions advanced by one step.
+    """S concurrent streaming seizure sessions, one step a capacity tile.
 
     ``pipelines`` is the patient -> trained-pipeline bank (one shared
     datapath and device, any variant; per-patient codebooks and calibrated
     thresholds welcome).  ``owners[i]`` names the patient of session ``i``.  The fleet
     runs on the bank's device: the card, or the CPU for a bank built with
-    ``device="cpu"``.
+    ``device="cpu"``.  ``tile`` sets the sessions a tile (default
+    ``derive_tile``, capped at the fleet's size rounded up to a power of
+    two); ``channel_masking`` enables ``set_channel_mask``.
     """
 
     def __init__(self, pipelines: Mapping[Hashable, HDCPipeline],
                  owners: Sequence[Hashable], *,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 tile: int | None = None, channel_masking: bool = False):
         self._cfg = dispatch.validate_bank(pipelines)
+        self._masked = bool(channel_masking)
         if not owners:
             raise ValueError("StreamingFleet needs at least one session")
         if not buckets or any(b <= 0 for b in buckets):
@@ -177,62 +266,120 @@ class StreamingFleet:
         self._device = pipes[0].device
         tables, param_rows = dispatch.stack_bound_tables(pipes)
         owner_idx = np.asarray([pid_index[pid] for pid in owners], np.int64)
-        thresholds = np.asarray([p.cfg.temporal_threshold for p in pipes],
-                                np.int32)
-        density = np.asarray([p.cfg.class_density for p in pipes], np.float32)
-        dev = self._device
         self._n = len(owner_idx)
+        if tile is None:
+            tile = derive_tile(self._cfg, max_bucket=self._buckets[-1],
+                               device=self._device)
+            if not os.environ.get("REPRO_FLEET_TILE", ""):
+                # capacity pads to whole tiles: a memory-derived tile is
+                # capped at the fleet's size rounded up to a power of two,
+                # so the phantom rows stay fewer than the sessions
+                tile = min(tile,
+                           max(64, 1 << (max(self._n - 1, 1).bit_length())))
+        if tile <= 0:
+            raise ValueError(f"tile={tile} must be positive")
+        # a fleet under a quarter tile keeps its exact size
+        self._np = (self._n if self._n < tile // 4
+                    else -(-self._n // tile) * tile)
+        if self._np > self._n:  # phantom slots take patient 0's registers
+            owner_idx = np.concatenate(
+                [owner_idx, np.zeros(self._np - self._n, np.int64)])
+        self._tile_slices = [slice(i, min(i + tile, self._np))
+                             for i in range(0, self._np, tile)]
         self._tables = tables.contiguous()
-        self._owner = torch.as_tensor(param_rows[owner_idx], device=dev)
-        self._thresholds = torch.as_tensor(thresholds[owner_idx], device=dev)
-        self._density = torch.as_tensor(density[owner_idx], device=dev)
-        sel = torch.as_tensor(owner_idx, device=dev)
-        bank = torch.stack([p.class_hvs for p in pipes])      # (P, C, W)
-        self._class_rows0 = bank[sel]
-        # each session's AM starts from its patient's trained counter file;
-        # a bank with a pipeline that has none cannot adapt
+        # per-slot operand registers: host mirrors and per-tile copies
+        self._thr_h = np.asarray([p.cfg.temporal_threshold for p in pipes],
+                                 np.int32)[owner_idx]
+        self._prow_h = np.asarray(param_rows, np.int32)[owner_idx]
+        self._dens_h = np.asarray([p.cfg.class_density for p in pipes],
+                                  np.float32)[owner_idx]
+        self._thresholds_t = self._put_tiles(self._thr_h)
+        self._param_owner_t = self._put_tiles(self._prow_h)
+        self._density_t = self._put_tiles(self._dens_h)
+        # each session's initial class rows and counter file, on the host:
+        # every fresh tile state is a copy of them
+        self._class_rows0 = np.stack([hv.to_u32(p.class_hvs)
+                                      for p in pipes])[owner_idx]
+        # a bank with a pipeline that has no counter file cannot adapt
         if all(p.am_state is not None for p in pipes):
-            self._am_counts0 = torch.stack([p.am_state.counts for p in pipes])[sel]
-            self._am_n0 = torch.stack([p.am_state.n for p in pipes])[sel]
+            self._am_counts0 = np.stack(
+                [p.am_state.counts.cpu().numpy() for p in pipes])[owner_idx]
+            self._am_n0 = np.stack(
+                [p.am_state.n.cpu().numpy() for p in pipes])[owner_idx]
         else:
             self._am_counts0 = self._am_n0 = None
-        self._state = self._zero_state()
+        # (start, stop) -> device copies of a tile's initial class rows and
+        # counter file, cloned into every fresh state of that tile
+        self._rows0_dev: dict[tuple[int, int], tuple] = {}
+        self._state_t = self._zero_states()
+        # the electrode quarantine: a host (S_prov, channels) mask, 1 =
+        # live, and its per-tile int32 copies; phantom rows stay all-live
+        if self._masked:
+            self._cmask_h = np.ones((self._np, self._cfg.channels), np.uint8)
+            self._cmask_t = self._put_tiles(self._cmask_h, torch.int32)
         # host mirrors: the emission schedule is a function of (filled,
         # lengths), so the host routes results without reading the device
-        self._filled_h = np.zeros((self._n,), np.int64)
-        self._fidx_h = np.zeros((self._n,), np.int64)
-        # (slot, bucket) -> staging buffer, and the event of the last step
-        # that read it
-        self._stage: dict[tuple[int, int], torch.Tensor] = {}
-        self._stage_done: dict[tuple[int, int], torch.cuda.Event] = {}
+        self._filled_h = np.zeros((self._np,), np.int64)
+        self._fidx_h = np.zeros((self._np,), np.int64)
+        # per tile: (slot, bucket) -> staging buffer, and the event of the
+        # last step that read it
+        self._stage_t: list[dict] = [{} for _ in self._tile_slices]
+        self._stage_done_t: list[dict] = [{} for _ in self._tile_slices]
         self._stage_phase = 0
         self._ragged_buf: np.ndarray | None = None
+        # per tile: state changed since the last checkpoint (set by steps
+        # with live cycles, adapt, slot writes and restore)
+        self._dirty_t = [True] * len(self._tile_slices)
 
     # -- state ----------------------------------------------------------------
 
-    def _zero_state(self) -> FleetState:
-        cfg, dev, s = self._cfg, self._device, self._n
+    def _put(self, x: np.ndarray, dtype: torch.dtype | None = None
+             ) -> torch.Tensor:
+        """A device copy of a host array (never a view of it)."""
+        return torch.tensor(np.asarray(x), dtype=dtype, device=self._device)
+
+    def _put_tiles(self, x: np.ndarray, dtype: torch.dtype | None = None
+                   ) -> list[torch.Tensor]:
+        return [self._put(x[sl], dtype) for sl in self._tile_slices]
+
+    def _zero_state(self, sl: slice) -> FleetState:
+        """Fresh state of one capacity tile: every session reset to its
+        patient's trained bank."""
+        cfg, dev = self._cfg, self._device
+        s = sl.stop - sl.start
         c = self._class_rows0.shape[1]
+
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
-        if self._am_counts0 is not None:
-            am_counts, am_n = self._am_counts0.clone(), self._am_n0.clone()
-        else:
+        key = (sl.start, sl.stop)
+        if key not in self._rows0_dev:
+            # a tile's initial rows never change once its slice exists
+            am = ((self._put(self._am_counts0[sl]), self._put(self._am_n0[sl]))
+                  if self._am_counts0 is not None else (None, None))
+            self._rows0_dev[key] = (self._put(hv.to_i32(self._class_rows0[sl])),
+                                    *am)
+        rows0, am_counts, am_n = (None if t is None else t.clone()
+                                  for t in self._rows0_dev[key])
+        if am_counts is None:
             am_counts, am_n = zeros(s, c, cfg.dim), zeros(s, c)
         return FleetState(counts=zeros(s, cfg.dim), filled=zeros(s),
-                          frame_index=zeros(s),
-                          class_rows=self._class_rows0.clone(),
+                          frame_index=zeros(s), class_rows=rows0,
                           am_counts=am_counts, am_n=am_n,
                           last_frame=zeros(s, cfg.words),
                           last_scores=zeros(s, c), has_frame=zeros(s))
 
+    def _zero_states(self) -> list[FleetState]:
+        return [self._zero_state(sl) for sl in self._tile_slices]
+
     def reset(self) -> None:
         """Zero every accumulator, fill level and frame index, and restore
-        every session's AM to its patient's trained state."""
-        self._state = self._zero_state()
+        every session's AM to its patient's trained state.  Channel masks
+        stay."""
+        self._state_t = self._zero_states()
         self._filled_h[:] = 0
         self._fidx_h[:] = 0
+        self._dirty_t = [True] * len(self._tile_slices)
 
     @property
     def device(self) -> torch.device:
@@ -243,18 +390,74 @@ class StreamingFleet:
         return self._n
 
     @property
+    def n_tiles(self) -> int:
+        return len(self._tile_slices)
+
+    @property
     def state(self) -> FleetState:
-        return self._state
+        """The whole fleet's state, tiles concatenated: its leading dim is
+        the provisioned capacity, and rows past ``n_sessions`` are phantom
+        slots."""
+        if len(self._state_t) == 1:
+            return self._state_t[0]
+        return FleetState(**{
+            f.name: torch.cat([getattr(st, f.name) for st in self._state_t])
+            for f in fields(FleetState)})
 
     @property
     def fill_levels(self) -> np.ndarray:
         """(S,) cycles accumulated toward each next (incomplete) frame."""
-        return self._filled_h.copy()
+        return self._filled_h[:self._n].copy()
 
     @property
     def frame_indices(self) -> np.ndarray:
         """(S,) frames emitted so far per session."""
-        return self._fidx_h.copy()
+        return self._fidx_h[:self._n].copy()
+
+    # -- channel masking ------------------------------------------------------
+
+    @property
+    def channel_masking(self) -> bool:
+        """True when the step carries the channel-mask operand."""
+        return self._masked
+
+    @property
+    def channel_masks(self) -> np.ndarray:
+        """(S, channels) uint8 live-channel masks (1 = live); all ones for a
+        fleet built without ``channel_masking``."""
+        if not self._masked:
+            return np.ones((self._n, self._cfg.channels), np.uint8)
+        return self._cmask_h[:self._n].copy()
+
+    def set_channel_mask(self, mask, sessions: Sequence[int] | None = None
+                         ) -> None:
+        """Quarantine or reinstate electrodes: ``mask`` is (S, channels), or
+        (channels,) broadcast, of 0/1 (1 = live); ``sessions`` restricts the
+        update to those session indices (``mask`` then (len(sessions),
+        channels) or (channels,)).  Masks persist across ``reset`` and ride
+        ``save``/``restore``."""
+        if not self._masked:
+            raise ValueError(
+                "fleet was built without channel_masking; pass "
+                "StreamingFleet(..., channel_masking=True) to enable "
+                "electrode quarantine")
+        c = self._cfg.channels
+        m = np.asarray(mask)
+        idx = (np.arange(self._n) if sessions is None
+               else np.asarray(list(sessions), np.int64))
+        if sessions is not None and (idx.size == 0 or idx.min() < 0
+                                     or idx.max() >= self._n):
+            raise ValueError(
+                f"sessions must be indices in [0, {self._n})")
+        if m.ndim == 1:
+            m = np.broadcast_to(m, (idx.size, c))
+        if m.shape != (idx.size, c):
+            raise ValueError(
+                f"mask must be ({idx.size}, {c}) or ({c},), got {m.shape}")
+        if not np.isin(m, (0, 1)).all():
+            raise ValueError("mask entries must be 0 or 1")
+        self._cmask_h[idx] = m.astype(np.uint8)
+        self._cmask_t = self._put_tiles(self._cmask_h, torch.int32)
 
     # -- streaming ------------------------------------------------------------
 
@@ -264,18 +467,20 @@ class StreamingFleet:
                 return b
         raise AssertionError("length exceeds max bucket")  # pragma: no cover
 
-    def _stage_buf(self, slot: int, t_pad: int) -> torch.Tensor:
-        """The (slot, bucket) staging buffer, safe to rewrite: waits for the
-        last step that read it.  Pinned host memory on the card."""
+    def _stage_buf(self, k: int, slot: int, t_pad: int) -> torch.Tensor:
+        """Tile ``k``'s (slot, bucket) staging buffer, safe to rewrite:
+        waits for the last step that read it.  Pinned host memory on the
+        card."""
         key = (slot, t_pad)
-        done = self._stage_done.pop(key, None)
+        done = self._stage_done_t[k].pop(key, None)
         if done is not None:
             done.synchronize()
-        if key not in self._stage:
-            self._stage[key] = torch.zeros(
-                (self._n, t_pad, self._cfg.channels), dtype=torch.uint8,
-                pin_memory=self._device.type == "cuda")
-        return self._stage[key]
+        if key not in self._stage_t[k]:
+            sl = self._tile_slices[k]
+            self._stage_t[k][key] = torch.zeros(
+                (sl.stop - sl.start, t_pad, self._cfg.channels),
+                dtype=torch.uint8, pin_memory=self._device.type == "cuda")
+        return self._stage_t[k][key]
 
     def _validate(self, chunks: Sequence) -> tuple[list[np.ndarray], np.ndarray]:
         """Per-chunk dtype/shape validation; returns (arrays, lengths)."""
@@ -314,33 +519,46 @@ class StreamingFleet:
 
     def _rounds(self, big: np.ndarray, lengths: np.ndarray) -> list[FleetRound]:
         """Advance the fleet over one packed (S, T, ch) code batch, one
-        bucketed step per ``max_bucket`` cycles."""
+        bucketed step a tile per ``max_bucket`` cycles.  ``lengths`` is
+        padded to the provisioned capacity (phantom rows 0); every tile
+        steps, and a tile with no live cycles stays clean."""
         rounds: list[FleetRound] = []
         max_bucket = self._buckets[-1]
-        cuda = self._device.type == "cuda"
+        dev = self._device
+        cuda = dev.type == "cuda"
         pos = 0
         total = int(lengths.max(initial=0))
         while pos < total:
             round_len = np.clip(lengths - pos, 0, max_bucket)
+            round_len32 = round_len.astype(np.int32)
             t_pad = self._bucket_for(int(round_len.max()))
             width = min(t_pad, total - pos)
             n_emit = (self._filled_h + round_len) // self._cfg.window
             slot = self._stage_phase & 1
             self._stage_phase += 1
-            stage = self._stage_buf(slot, t_pad)
-            stage.numpy()[:, :width] = big[:, pos:pos + width]
-            chunk = stage.to(self._device, non_blocking=True)
-            lens = torch.as_tensor(round_len.astype(np.int32),
-                                   device=self._device)
-            self._state, fo = _fleet_step(
-                self._state, self._tables, self._owner, self._thresholds,
-                chunk, lens, cfg=self._cfg)
-            if cuda:  # the staging slot is free once this step has run
-                done = torch.cuda.Event()
-                done.record()
-                self._stage_done[(slot, t_pad)] = done
-            rounds.append(FleetRound(out=fo, n_emit=n_emit,
-                                     frame_base=self._fidx_h.copy()))
+            outs = []
+            for k, sl in enumerate(self._tile_slices):
+                stage = self._stage_buf(k, slot, t_pad)
+                hi = min(sl.stop, self._n)  # phantom rows: stale == masked
+                if hi > sl.start:
+                    stage.numpy()[:hi - sl.start, :width] = big[sl.start:hi,
+                                                                pos:pos + width]
+                chunk = stage.to(dev, non_blocking=True)
+                lens = torch.as_tensor(round_len32[sl], device=dev)
+                self._state_t[k], fo = _fleet_step(
+                    self._state_t[k], self._tables, self._param_owner_t[k],
+                    self._thresholds_t[k], chunk, lens,
+                    self._cmask_t[k] if self._masked else None, cfg=self._cfg)
+                if cuda:  # the staging slot is free once this step has run
+                    done = torch.cuda.Event()
+                    done.record()
+                    self._stage_done_t[k][(slot, t_pad)] = done
+                if round_len[sl].any():
+                    self._dirty_t[k] = True
+                outs.append(fo)
+            # rounds expose real sessions only: phantom rows never emit
+            rounds.append(FleetRound(tiles=tuple(outs), n_emit=n_emit[:self._n],
+                                     frame_base=self._fidx_h[:self._n].copy()))
             self._filled_h += round_len - n_emit * self._cfg.window
             self._fidx_h += n_emit
             pos += max_bucket
@@ -352,10 +570,12 @@ class StreamingFleet:
         if len(chunks) != self._n:
             raise ValueError(
                 f"push needs one chunk per session ({self._n}), got {len(chunks)}")
-        arrs, lengths = self._validate(chunks)
-        if int(lengths.max(initial=0)) == 0:
+        arrs, real_lengths = self._validate(chunks)
+        if int(real_lengths.max(initial=0)) == 0:
             return []
-        return self._rounds(self._pack(arrs, lengths), lengths)
+        lengths = np.zeros((self._np,), np.int64)
+        lengths[:self._n] = real_lengths
+        return self._rounds(self._pack(arrs, real_lengths), lengths)
 
     def push_codes_raw(self, batch, lengths: Sequence[int] | None = None
                        ) -> list[FleetRound]:
@@ -368,14 +588,16 @@ class StreamingFleet:
                 f"push_codes needs a ({self._n}, t, {ch}) batch, got "
                 f"{batch.shape}")
         t = batch.shape[1]
+        lens = np.zeros((self._np,), np.int64)
         if lengths is None:
-            lens = np.full((self._n,), t, np.int64)
+            lens[:self._n] = t
         else:
-            lens = np.asarray(lengths, np.int64)
-            if lens.shape != (self._n,) or lens.min(initial=0) < 0 or \
-                    lens.max(initial=0) > t:
+            ll = np.asarray(lengths, np.int64)
+            if ll.shape != (self._n,) or ll.min(initial=0) < 0 or \
+                    ll.max(initial=0) > t:
                 raise ValueError(
                     f"lengths must be ({self._n},) ints in [0, {t}]")
+            lens[:self._n] = ll
         if t == 0 or int(lens.max(initial=0)) == 0:
             return []
         return self._rounds(batch, lens)
@@ -393,16 +615,21 @@ class StreamingFleet:
         for r in rounds:
             if not r.n_emit.any():
                 continue
-            frames = hv.to_u32(r.out.frames)
-            scores = r.out.scores.cpu().numpy()
-            preds = np.argmax(scores, axis=-1)
-            for i in np.nonzero(r.n_emit)[0]:
-                base = int(r.frame_base[i])
-                out[i].extend(
-                    FrameDecision(frame_index=base + k, scores=scores[i, k],
-                                  prediction=int(preds[i, k]),
-                                  frame_hv=frames[i, k])
-                    for k in range(int(r.n_emit[i])))
+            for sl, fo in zip(self._tile_slices, r.tiles):
+                ne = r.n_emit[sl]
+                if not ne.any():
+                    continue
+                frames = hv.to_u32(fo.frames)
+                scores = fo.scores.cpu().numpy()
+                preds = np.argmax(scores, axis=-1)
+                for i in np.nonzero(ne)[0]:
+                    g = sl.start + int(i)
+                    base = int(r.frame_base[g])
+                    out[g].extend(
+                        FrameDecision(frame_index=base + k, scores=scores[i, k],
+                                      prediction=int(preds[i, k]),
+                                      frame_hv=frames[i, k])
+                        for k in range(int(ne[i])))
         return out
 
     def push(self, chunks: Sequence) -> list[list[FrameDecision]]:
@@ -415,7 +642,7 @@ class StreamingFleet:
     @property
     def class_rows(self) -> np.ndarray:
         """(S, C, W) uint32 per-session (possibly adapted) class HV rows."""
-        return hv.to_u32(self._state.class_rows)
+        return hv.to_u32(torch.cat([st.class_rows for st in self._state_t]))[:self._n]
 
     def adapt(self, labels: Sequence[int], *, margin: float = 0.0) -> np.ndarray:
         """Personalise all S sessions' AMs from one feedback label each:
@@ -437,10 +664,16 @@ class StreamingFleet:
             raise ValueError(
                 f"labels must be < n_classes={self._cfg.n_classes} "
                 "(-1 = no feedback)")
-        self._state, applied = _fleet_adapt(
-            self._state, torch.as_tensor(lab, device=self._device), margin,
-            self._density, cfg=self._cfg)
-        return applied.cpu().numpy()
+        full = np.full((self._np,), -1, np.int64)  # phantoms: no feedback
+        full[:self._n] = lab
+        applied = []
+        for k, sl in enumerate(self._tile_slices):
+            self._state_t[k], app = _fleet_adapt(
+                self._state_t[k], torch.as_tensor(full[sl], device=self._device),
+                margin, self._density_t[k], cfg=self._cfg)
+            self._dirty_t[k] = True
+            applied.append(app.cpu().numpy())
+        return np.concatenate(applied)[:self._n]
 
     # -- durability -----------------------------------------------------------
 
@@ -455,42 +688,48 @@ class StreamingFleet:
             "bank": self._bank_fingerprint(),
         }
 
-    def _bank_fingerprint(self) -> str:
-        """Digest of what a saved state is only valid against: the pre-bound
-        tables, each session's table row, threshold and class density, and
-        its initial class rows and counter file.  Packed words are hashed as
-        uint32."""
+    @staticmethod
+    def _digest(operands) -> str:
+        """sha256 over each array's (dtype, shape) and bytes, 16 hex digits."""
         h = hashlib.sha256()
-        operands = [hv.to_u32(self._tables), self._owner.cpu().numpy(),
-                    self._thresholds.cpu().numpy(), self._density.cpu().numpy(),
-                    hv.to_u32(self._class_rows0)]
-        if self._am_counts0 is not None:
-            operands += [self._am_counts0.cpu().numpy(), self._am_n0.cpu().numpy()]
-        for arr in operands:
-            arr = np.ascontiguousarray(arr)
+        for a in operands:
+            arr = np.ascontiguousarray(a)
             h.update(str((arr.dtype.str, arr.shape)).encode())
             h.update(arr.tobytes())
         return h.hexdigest()[:16]
 
+    def _bank_fingerprint(self) -> str:
+        """Digest of what a saved state is only valid against: the pre-bound
+        tables and, for every provisioned slot, its table row, threshold,
+        class density, initial class rows and counter file.  Packed words
+        are hashed as uint32."""
+        operands = [hv.to_u32(self._tables), self._prow_h, self._thr_h,
+                    self._dens_h, self._class_rows0]
+        if self._am_counts0 is not None:
+            operands += [self._am_counts0, self._am_n0]
+        return self._digest(operands)
+
     def save(self, root: str, step: int | None = None) -> str:
         """Checkpoint the whole fleet state (streaming accumulators and
-        online AM banks) under ``root`` with the checkpoint module's atomic
-        rename; ``step`` defaults to one past the latest.  Packed words are
-        saved as uint32.  Returns the checkpoint directory."""
+        online AM banks, ``state``'s padded rows) under ``root`` with the
+        checkpoint module's atomic rename; ``step`` defaults to one past
+        the latest.  Packed words are saved as uint32; channel masks ride
+        the manifest meta.  Returns the checkpoint directory."""
         if step is None:
             latest = ckpt.latest_step(root)
             step = 0 if latest is None else latest + 1
-        host = FleetState(**{
-            f.name: (hv.to_u32(getattr(self._state, f.name))
-                     if f.name in _PACKED_LEAVES
-                     else getattr(self._state, f.name).cpu().numpy())
-            for f in fields(FleetState)})
-        return ckpt.save(root, step, host, meta=self._meta())
+        meta = self._meta()
+        if self._masked:
+            # outside the _meta() comparison: a fleet without masking
+            # restores the checkpoint
+            meta["channel_mask"] = _mask_meta(self._cmask_h[:self._n])
+        return ckpt.save(root, step, _host_state(self.state), meta=meta)
 
     def restore(self, root: str, step: int | None = None) -> int:
         """Restore a ``save``d state into this fleet (the same bank and
         session count); pushes continue mid-stream from the restored fill
-        levels.  Returns the step."""
+        levels, and a checkpoint without masks restores all-live.  Returns
+        the step."""
         if step is None:
             step = ckpt.latest_step(root)
             if step is None:
@@ -505,7 +744,16 @@ class StreamingFleet:
             raise ValueError(
                 f"checkpoint does not match this fleet: {bad} "
                 "(saved, expected)")
-        self._state = ckpt.restore(root, step, like=self._state)
-        self._filled_h = self._state.filled.cpu().numpy().astype(np.int64)
-        self._fidx_h = self._state.frame_index.cpu().numpy().astype(np.int64)
+        full = ckpt.restore(root, step, like=self.state)
+        self._state_t = [FleetState(**{f.name: getattr(full, f.name)[sl]
+                                       for f in fields(FleetState)})
+                         for sl in self._tile_slices]
+        self._filled_h = full.filled.cpu().numpy().astype(np.int64)
+        self._fidx_h = full.frame_index.cpu().numpy().astype(np.int64)
+        self._dirty_t = [True] * len(self._tile_slices)
+        if self._masked:
+            self._cmask_h[:] = 1
+            self._cmask_h[:self._n] = _mask_from_meta(
+                meta.get("channel_mask"), (self._n, self._cfg.channels))
+            self._cmask_t = self._put_tiles(self._cmask_h, torch.int32)
         return step

@@ -315,3 +315,123 @@ def test_fleet_guards():
         fleet.push_codes(np.zeros((2, 4, 6), np.uint8), [5, 0])
     assert fleet.push([np.zeros((0, 6), np.uint8)] * 2) == [[], []]
     assert fleet.device == torch.device("cpu") and fleet.n_sessions == 2
+
+
+# ---------------------------------------------------------------------------
+# capacity tiles
+# ---------------------------------------------------------------------------
+
+def _cycle(n: int, pids=("a", "b", "c")) -> list:
+    return [pids[i % len(pids)] for i in range(n)]
+
+
+def test_tiled_fleet_matches_reference():
+    """37 sessions in tiles of 16: three tiles (one launch each a round)
+    and 11 phantom slots.  Ragged schedules, a round in which the middle
+    tile has no live cycle, a split round and an ``adapt``; the state rows
+    (phantoms included), fill levels and ``_meta()`` agree."""
+    jbank, tbank = _banks(6)
+    owners = _cycle(37)
+    jf = JFleet(jbank, owners, buckets=(16, 32), backend="jnp", tile=16)
+    tf = StreamingFleet(tbank, owners, buckets=(16, 32), tile=16)
+    assert tf.n_tiles == jf.n_tiles == 3 and tf.n_sessions == 37
+    assert tf.state.counts.shape[0] == np.asarray(jf.state.counts).shape[0] == 48
+    assert tf._meta() == jf._meta()
+    rng = np.random.default_rng(21)
+    idle_middle = rng.integers(0, 80, 37)
+    idle_middle[16:32] = 0
+    for lens in (rng.integers(0, 80, 37), idle_middle, np.full(37, 70),
+                 rng.integers(0, 40, 37)):
+        chunks = [rng.integers(0, 72, (int(t), 6), np.uint8) for t in lens]
+        _assert_decisions_equal(tf.push(chunks), jf.push(chunks))
+        _assert_state_equal(tf, jf)
+    labels = rng.integers(-1, 2, 37)
+    np.testing.assert_array_equal(tf.adapt(labels), np.asarray(jf.adapt(labels)))
+    _assert_state_equal(tf, jf)
+    chunks = [rng.integers(0, 64, (40, 6), np.uint8) for _ in range(37)]
+    _assert_decisions_equal(tf.push(chunks), jf.push(chunks))
+    np.testing.assert_array_equal(tf.class_rows, np.asarray(jf.class_rows))
+
+
+@pytest.mark.parametrize("n", [10, 70])
+def test_default_tile_pads_like_reference(n):
+    """At the default tile on the CPU (256, capped at the fleet's size
+    rounded up to a power of two) both packages provision the same rows:
+    10 sessions keep their exact size, 70 pad to 128."""
+    jbank, tbank = _banks(6)
+    owners = _cycle(n)
+    jf = JFleet(jbank, owners, buckets=(32,), backend="jnp")
+    tf = StreamingFleet(tbank, owners, buckets=(32,))
+    rows = np.asarray(jf.state.counts).shape[0]
+    assert rows == {10: 10, 70: 128}[n]
+    assert tf.state.counts.shape[0] == rows and tf.n_tiles == jf.n_tiles == 1
+    assert tf._meta() == jf._meta()
+    rng = np.random.default_rng(n)
+    chunks = [rng.integers(0, 64, (int(t), 6), np.uint8)
+              for t in rng.integers(0, 70, n)]
+    _assert_decisions_equal(tf.push(chunks), jf.push(chunks))
+    _assert_state_equal(tf, jf)
+    assert tf.fill_levels.shape == (n,)
+
+
+@pytest.mark.parametrize("direction", ["port_to_reference", "reference_to_port"])
+def test_padded_checkpoint_restores_across_packages(tmp_path, direction):
+    """70 sessions at ``tile=256`` (the reference pads to 256 rows): each
+    package restores the other's checkpoint and continues equal to the
+    uninterrupted fleet of the other package."""
+    from test_torch_engine import _banks as _engine_banks
+
+    jbank, tbank = _engine_banks()
+    owners = _cycle(70)
+    jf = JFleet(jbank, owners, buckets=(8, 32), backend="jnp", tile=256)
+    tf = StreamingFleet(tbank, owners, buckets=(8, 32), tile=256)
+    assert tf.state.counts.shape[0] == np.asarray(jf.state.counts).shape[0] == 256
+    assert tf._meta() == jf._meta()
+    rng = np.random.default_rng(17)
+    chans = tbank["a"].cfg.channels
+    for _ in range(2):
+        chunks = [rng.integers(0, 64, (int(t), chans), np.uint8)
+                  for t in rng.integers(0, 50, 70)]
+        _assert_decisions_equal(tf.push(chunks), jf.push(chunks))
+        labels = rng.integers(-1, 2, 70)
+        np.testing.assert_array_equal(tf.adapt(labels), np.asarray(jf.adapt(labels)))
+    root = str(tmp_path / "ckpt")
+    if direction == "port_to_reference":
+        tf.save(root)
+        resumed, live = JFleet(jbank, owners, buckets=(8, 32), backend="jnp",
+                               tile=256), tf
+    else:
+        jf.save(root)
+        resumed, live = StreamingFleet(tbank, owners, buckets=(8, 32), tile=256), jf
+    assert resumed.restore(root) == 0
+    np.testing.assert_array_equal(resumed.fill_levels, live.fill_levels)
+    for _ in range(2):
+        chunks = [rng.integers(0, 64, (int(t), chans), np.uint8)
+                  for t in rng.integers(0, 50, 70)]
+        _assert_decisions_equal(resumed.push(chunks), live.push(chunks))
+
+
+def test_derive_tile_matches_reference(monkeypatch):
+    """``REPRO_FLEET_TILE`` set (valid or not) and unset on the CPU: the
+    same tile, or the same error."""
+    from repro.serve.fleet import derive_tile as j_derive_tile
+    from repro_torch.serve.fleet import DEFAULT_TILE, derive_tile
+
+    jcfg = JConfig(dim=DIM, segments=SEGMENTS, channels=6, window=WINDOW)
+    tcfg = convert.config_from_fields(dataclasses.asdict(jcfg))
+    monkeypatch.delenv("REPRO_FLEET_TILE", raising=False)
+    assert derive_tile(tcfg, device="cpu") == j_derive_tile(jcfg) == DEFAULT_TILE
+    for env in ("64", "128", "4096"):
+        monkeypatch.setenv("REPRO_FLEET_TILE", env)
+        assert derive_tile(tcfg, device="cpu") == j_derive_tile(jcfg) == int(env)
+    for env in ("abc", "100", "32", "8192"):
+        monkeypatch.setenv("REPRO_FLEET_TILE", env)
+        with pytest.raises(ValueError) as want:
+            j_derive_tile(jcfg)
+        with pytest.raises(ValueError) as got:
+            derive_tile(tcfg, device="cpu")
+        assert str(got.value) == str(want.value)
+    monkeypatch.setenv("REPRO_FLEET_TILE", "64")
+    _, tbank = _banks(6)
+    fleet = StreamingFleet(tbank, _cycle(100), buckets=(32,))
+    assert fleet.n_tiles == 2 and fleet.state.counts.shape[0] == 128

@@ -53,6 +53,7 @@ def test_import_scan_covers_every_package():
     packages = {p.parent.name for p in PORT_FILES}
     assert {"core", "kernels", "serve", "ckpt", "data"} <= packages
     assert ROOT / "src" / "repro_torch" / "ckpt" / "checkpoint.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "serve" / "lifecycle.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -69,7 +70,8 @@ def test_every_port_module_imports_without_building():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert {"repro_torch.serve.fleet", "repro_torch.serve.engine",
-            "repro_torch.ckpt.checkpoint", "repro_torch.convert"} <= set(names)
+            "repro_torch.serve.lifecycle", "repro_torch.ckpt.checkpoint",
+            "repro_torch.convert"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert build._lib is None
@@ -92,6 +94,10 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         device.resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HDCPipeline.init(torch.Generator().manual_seed(0), cfg)
+    from repro_torch.serve.fleet import DEFAULT_TILE, derive_tile
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        derive_tile(cfg)
+    assert derive_tile(cfg, device="cpu") == DEFAULT_TILE
     fields = {"dim": 256, "channels": 4, "window": 32}
     item = np.zeros((4, 64, 8), np.uint8)
     elec = np.zeros((4, 8), np.uint8)
@@ -170,7 +176,7 @@ def _small_bank(device="cpu"):
     return {"p": pipe.train_one_shot(codes, labels)}
 
 
-@pytest.mark.parametrize("kind", ["engine", "session", "fleet"])
+@pytest.mark.parametrize("kind", ["engine", "session", "fleet", "elastic"])
 def test_serving_objects_without_a_card_raise(monkeypatch, kind):
     """Without a card, a bank built with ``device=None`` raises at its
     pipelines, so no engine, session or fleet is built on the CPU behind
@@ -178,10 +184,12 @@ def test_serving_objects_without_a_card_raise(monkeypatch, kind):
     where their pipelines lie."""
     from repro_torch.serve.engine import SeizureSession, ServingEngine
     from repro_torch.serve.fleet import StreamingFleet
+    from repro_torch.serve.lifecycle import ElasticFleet
 
     build_obj = {"engine": lambda bank: ServingEngine(bank),
                  "session": lambda bank: SeizureSession(bank["p"]),
-                 "fleet": lambda bank: StreamingFleet(bank, ["p"])}[kind]
+                 "fleet": lambda bank: StreamingFleet(bank, ["p"]),
+                 "elastic": lambda bank: ElasticFleet(bank)}[kind]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_obj(_small_bank(device=None))
