@@ -16,7 +16,9 @@ Phases (one line each, any failure exits non-zero):
    (both modes at the main shape, S = 7, seg_len 48, D = 2048, windows 40
    and 48, spatial thresholds 0, 1, 2, 3, 5, C and C + 1, out-of-alphabet
    codes, a table too large for shared memory), for ``hdc_fleet`` also the
-   elastic fleet's tile (S = 256, with and without a mask), and for ``lbp`` 7 and 65
+   elastic fleet's tile (S = 256, with and without a mask) and each mode
+   on a faulted bank (one-hot pre-bound rows XORed with a BER 1e-2 draw
+   made on the card), and for ``lbp`` 7 and 65
    channels (exact equality: all integer or bit arithmetic), with
    CUDA-event times (as the host issues the calls; beside it the device
    time, the calls queued behind a device-side sleep so that the host's
@@ -73,7 +75,22 @@ Phases (one line each, any failure exits non-zero):
    streams followed through their whole life, two masked, against a CPU
    elastic fleet replaying their events.  Host-clock times of admit,
    evict, spill, compact, rounds at 256-1024 live sessions, saves,
-   ``from_checkpoint`` and ``replay``.
+   ``from_checkpoint`` and ``replay``;
+10. reliability: a 1024-session fleet with every target faulted (SECDED)
+   on phase 8's bank and on phase 6's dense bank: at BER 0 equal to an
+   unfaulted fleet with no ECC event; one step at BER 1e-2 in each fault
+   mode (transient, stuck) held against the CPU plain step given the draw
+   the fleet made on the card (32 sessions: state, frames, scores, ECC
+   counts); a ``set_ber`` walk over 0, 1e-4, 1e-3, 1e-2 (ECC sums, frame
+   disagreement with the clean run); the clean and the faulted round timed
+   in turns, one of each profiled, and the draw alone; ``run_sweep`` at the
+   paper's geometry (sparse_opt and dense, none and SECDED, BERs 0, 1e-3
+   and 1e-2, 4 patients x 2 records; every BER-0 point bit-exact, the
+   points printed on a line); and ``FleetChannelMonitor`` on 64 sessions
+   that lose two electrodes (``degrade_batch``, dead), its masks fed to a
+   masked card fleet and a masked CPU fleet each round (every decision
+   equal; the quarantine equal to ``degrade_batch``'s mask), ``observe``
+   timed per session-round.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -132,6 +149,14 @@ ELASTIC_CHURN_ROUNDS = 5
 ELASTIC_EVICT = 0.10     # the share of live sessions evicted a churn round
 ELASTIC_MASKED = 64      # sessions with two electrodes quarantined
 ELASTIC_FOLLOW = 32      # streams held against a CPU elastic fleet
+# phase 10: reliability
+REL_SESSIONS = 1024
+REL_ROUNDS = 3           # rounds of 256 cycles at each point of the BER walk
+REL_BERS = (0.0, 1e-4, 1e-3, 1e-2)
+SWEEP_PATIENTS = 4
+SWEEP_TESTS = 2
+MONITOR_SESSIONS = 64
+MONITOR_ROUNDS = 6
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # 32-bit rate outside the tensor cores, used for the integer/bit operations
@@ -160,6 +185,7 @@ PATH_KERNELS = {
     "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
     "online": ("hdc_encoder", "hdc_am", "hdc_fleet"),
     "elastic": ("hdc_fleet",),
+    "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
 }
 
 
@@ -494,6 +520,7 @@ def check_kernels(shapes: dict) -> KernelCheck:
     log("[kernel] hdc_fleet modes at the main shape: " + "; ".join(
         f"{m} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}; "
         f"plain {r['plain_ms']:.4f} ms)" for m, r in modes.items()))
+    kc.rows["hdc_fleet"]["faulted_bank"] = faulted_bank_cases(kc, g, shapes["fleet"])
 
     # dense_hdc: codes (N, window, C) uint8, table (C, K, W) -> (N, W); the
     # other cases have windows that are no multiple of 16 (or of 32), odd C
@@ -517,6 +544,46 @@ def check_kernels(shapes: dict) -> KernelCheck:
                    plain_reps=2)
     check_fused(kc, g, shapes)
     return kc
+
+
+def faulted_bank_cases(kc: KernelCheck, g, shape) -> dict:
+    """The fleet kernel on a faulted bank, each mode at the main shape (a
+    steady round): pre-bound one-hot rows (8 segments of 128 positions)
+    XORed with a BER 1e-2 draw made on the card, so that rows are no longer
+    one-hot per segment."""
+    from repro_torch.core import hv
+    from repro_torch.kernels.hdc_fleet import ops as fl_ops, ref as fl_ref
+    from repro_torch.reliability import faults
+
+    p, s, t, c, k, w, window = shape
+    pos = torch.randint(0, w * 32 // 8, (p, c, k, 8), generator=g, dtype=torch.uint8).cuda()
+    clean = hv.positions_to_packed(pos, w * 32, 8)
+    draw = faults.draw_words(torch.Generator(device="cuda").manual_seed(SEED), clean.shape,
+                             1e-2)
+    tables = faults.flip_words(clean, draw)
+    per_seg = hv.popcount(tables.reshape(p, c, k, 8, w // 8))
+    off = float((per_seg != 1).float().mean())
+    expect(off > 0.1, f"hdc_fleet faulted bank: only {off:.3f} of segments are not one-hot")
+    owner = torch.randint(0, p, (s,), generator=g, dtype=torch.int32).cuda()
+    codes = torch.randint(0, k, (s, t, c), generator=g, dtype=torch.uint8).cuda()
+    tm = fl_ref.emission_masks(torch.zeros(s, dtype=torch.int32).cuda(),
+                               torch.full((s,), t, dtype=torch.int32).cuda(),
+                               t_pad=t, window=window)
+    k1, d = tm.shape[1], w * 32
+    out = {}
+    for mode, thr in (("or", 0), ("thin", 2), ("majority", 0)):
+        kw = dict(mode=mode, dim=d, threshold=thr)
+        out[mode] = kc.compare(
+            "hdc_fleet", f"faulted bank C={c} S={s} T={t} {mode}", fl_ops.fleet_counts_kernel,
+            lambda: fl_ops.fleet_counts_kernel(tables, owner, codes, tm, **kw),
+            lambda: fl_ref.fleet_counts_plain(tables, owner, codes, tm, **kw),
+            n_bytes=codes.numel() + tables.numel() * 4 + tm.numel() * 4 + s * 4
+            + s * k1 * d * 4,
+            n_ops=s * t * c * w + s * k1 * t * w * 3, main=False, reps=10, plain_reps=2)
+    log(f"[kernel] hdc_fleet on a faulted bank (BER 1e-2, {100 * off:.1f}% of segments not "
+        "one-hot): " + "; ".join(f"{m} {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms)"
+                                  for m, r in out.items()))
+    return out
 
 
 def _old_chain(encode, frames, classes, mode: str, dim: int):
@@ -1706,6 +1773,261 @@ def elastic_phase(tag: str, bank: dict, records) -> dict:
     log(f"[{tag}] phase 9 took {out['phase_s']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 10: reliability
+# ---------------------------------------------------------------------------
+
+def _round_preds(decisions) -> np.ndarray:
+    return np.asarray([[d.prediction for d in ds] for ds in decisions], np.int32)
+
+
+def _timed_push(fleet, batch) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    dec = fleet.push_codes(batch)
+    return dec, (time.perf_counter() - t0) * 1e3
+
+
+def _state_rows(state, n: int, device):
+    from repro_torch.serve.fleet import FleetState
+
+    return FleetState(**{k: v[:n].to(device) for k, v in vars(state).items()})
+
+
+def faulted_step_check(tag: str, bank: dict, owners, rounds, mode: str) -> dict:
+    """One faulted step at BER 1e-2 on every target (``mode`` faults,
+    SECDED) of a fleet over ``bank``, after a 200-cycle push (mid-window
+    counters): the draw the fleet makes for that round on the card, copied
+    to the CPU, drives the CPU plain step on the first ``COMPARE_SESSIONS``
+    sessions; its state, frames, scores and ECC counts must equal the card
+    fleet's."""
+    from repro_torch.reliability.faults import FaultConfig, StepDraw, WordDraw
+    from repro_torch.serve.fleet import StreamingFleet, _fleet_step
+
+    n = COMPARE_SESSIONS
+    fc = FaultConfig(tables=1e-2, am=1e-2, counts=1e-2, mode=mode, ecc="secded",
+                     seed=SEED + 3)
+    fleet = StreamingFleet(bank, owners, faults=fc)
+    fleet.push_codes(rounds[0][:, :200])
+    before = fleet._state_t[0]
+    draw = fleet._step_draw(0, fleet._stage_phase)
+    expect(all(d.sel.is_cuda for d in (draw.tables, draw.am, draw.am_check, draw.counts)),
+           f"{tag}: the fault draw does not lie on the card")
+    ecc0 = fleet.ecc_stats
+    (rnd,) = fleet.push_codes_raw(rounds[1])
+    after, out = fleet._state_t[0], rnd.tiles[0]
+    ecc_c = fleet.ecc_stats - ecc0
+
+    def rows(d):
+        return WordDraw(d.sel[:n].cpu(), None if d.val is None else d.val[:n].cpu())
+
+    cpu_draw = StepDraw(tables=draw.tables.to("cpu"), am=rows(draw.am),
+                        am_check=rows(draw.am_check), counts=rows(draw.counts))
+    t0 = time.perf_counter()
+    got, got_out, got_ecc = _fleet_step(
+        _state_rows(before, n, "cpu"), fleet._tables.cpu(),
+        fleet._param_owner_t[0][:n].cpu(), fleet._thresholds_t[0][:n].cpu(),
+        torch.from_numpy(np.ascontiguousarray(rounds[1][:n])),
+        torch.full((n,), rounds[1].shape[1], dtype=torch.int32), None,
+        cfg=fleet._cfg, faults=fleet._plan, draw=cpu_draw)
+    cpu_s = time.perf_counter() - t0
+    want = _state_rows(after, n, "cpu")
+    expect(all(torch.equal(getattr(got, k), getattr(want, k)) for k in vars(want))
+           and torch.equal(got_out.frames, out.frames[:n].cpu())
+           and torch.equal(got_out.scores, out.scores[:n].cpu())
+           and np.array_equal(got_ecc.numpy(), ecc_c[:n]),
+           f"{tag}: the faulted step ({mode}) differs from the CPU plain step given "
+           "the card's draw")
+    tot = ecc_c.sum(axis=0)
+    expect(tot[0] > 0, f"{tag}: no AM word was corrected at BER 1e-2 ({mode})")
+    log(f"[{tag}] faulted step ({mode}, BER 1e-2 on tables, AM and counters, secded): "
+        f"first {n} sessions equal to the CPU plain step given the card's draw "
+        f"(state, frames, scores, ECC counts; {cpu_s:.2f} s on the CPU); the round's ECC "
+        f"words corrected / detected / uncorrectable {tot.tolist()}")
+    return {"mode": mode, "ecc": tot.tolist()}
+
+
+def faulted_fleet(tag: str, bank: dict, records) -> dict:
+    """A 1024-session fleet over ``bank`` with every target faulted
+    (transient, SECDED): at BER 0 its decisions equal an unfaulted fleet's on
+    the same rounds and ``ecc_stats`` stays zero; one step in each fault
+    mode against the CPU plain step; ``set_ber`` walks REL_BERS (ECC sums
+    and frame disagreement with the clean run at each); the clean and the
+    faulted round timed in turns (host clock), one of each profiled, and
+    the draw alone."""
+    from repro_torch.reliability.faults import FaultConfig
+    from repro_torch.serve.fleet import StreamingFleet
+
+    names = list(bank)
+    owners = [names[i % len(names)] for i in range(REL_SESSIONS)]
+    rng = np.random.default_rng(SEED + 20)
+    streams, _ = _adapt_streams(bank, records, REL_SESSIONS, REL_ROUNDS, rng)
+    rounds = [streams[:, r * 256:(r + 1) * 256] for r in range(REL_ROUNDS)]
+    clean = StreamingFleet(bank, owners)
+    fleet = StreamingFleet(bank, owners, faults=FaultConfig(
+        tables=0.0, am=0.0, counts=0.0, ecc="secded", seed=SEED))
+    expect(clean.n_tiles == fleet.n_tiles == 1, f"{tag}: more than one tile")
+    clean_dec = [clean.push_codes(b) for b in rounds]
+    at0 = [fleet.push_codes(b) for b in rounds]
+    expect(all(_same_decisions(a, b) for da, db in zip(at0, clean_dec)
+               for a, b in zip(da, db)),
+           f"{tag}: the faulted fleet at BER 0 decides otherwise than the clean fleet")
+    expect(not fleet.ecc_stats.any(), f"{tag}: ECC events at BER 0")
+    clean_preds = np.concatenate([_round_preds(d) for d in clean_dec], axis=1)
+    out = {"steps": [faulted_step_check(tag, bank, owners, rounds, m)
+                     for m in ("transient", "stuck")]}
+
+    walk = []
+    for ber in REL_BERS:
+        fleet.set_ber(ber)
+        fleet.reset()
+        preds = np.concatenate([_round_preds(fleet.push_codes(b)) for b in rounds], axis=1)
+        st = fleet.ecc_stats.sum(axis=0)
+        walk.append({"ber": ber, "ecc": st.tolist(),
+                     "frame_disagreement": float(np.mean(preds != clean_preds))})
+    expect(walk[0]["frame_disagreement"] == 0 and walk[0]["ecc"] == [0, 0, 0],
+           f"{tag}: the walk's BER-0 point differs from the clean run")
+    out["walk"] = walk
+    log(f"[{tag}] set_ber walk, {REL_ROUNDS} rounds of 256 cycles x {REL_SESSIONS} sessions "
+        "each (ECC words corrected/detected/uncorrectable; frame disagreement with the "
+        "clean run): " + "; ".join(
+            f"{w['ber']:g}: {w['ecc']}, {w['frame_disagreement']:.4f}" for w in walk))
+
+    # rounds timed in turns (clean, faulted, faulted, clean) at BER 1e-2
+    times = {"clean": [], "faulted": []}
+    for name in ("clean", "faulted", "faulted", "clean"):
+        f = clean if name == "clean" else fleet
+        f.reset()
+        torch.cuda.synchronize()
+        times[name] += [_timed_push(f, b)[1] for b in rounds]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof_out = {}
+    for name, f in (("clean", clean), ("faulted", fleet)):
+        # a warm-up round under the profiler, then the one that is read
+        f.reset()
+        torch.cuda.synchronize()
+        walls, seen = [], {}
+
+        def read(p, seen=seen):
+            # the step's own device-side annotation is not a kernel
+            dev_us = {k: v for k, v in device_busy(p)[1].items()
+                      if not k.startswith("ProfilerStep")}
+            seen["busy"], seen["dev_us"] = sum(dev_us.values()) / 1e3, dev_us
+
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=read) as prof:
+            for b in rounds[:2]:
+                walls.append(_timed_push(f, b)[1])
+                prof.step()
+        top = sorted(seen["dev_us"].items(), key=lambda kv: -kv[1])[:6]
+        prof_out[name] = {"wall_ms": walls[1], "busy_ms": seen["busy"],
+                          "top_ms": {k[:60]: v / 1e3 for k, v in top}}
+    phase = fleet._stage_phase
+    draw_ms = cuda_ms(lambda: fleet._step_draw(0, phase), 10)
+    with torch.profiler.profile(activities=acts) as prof:
+        fleet._step_draw(0, phase)
+        torch.cuda.synchronize()
+    draw_busy, _ = device_busy(prof)
+    out.update(clean_round_ms=float(np.median(times["clean"])),
+               faulted_round_ms=float(np.median(times["faulted"])),
+               round_ms=times, profiled=prof_out, draw_ms=draw_ms, draw_busy_ms=draw_busy)
+    log(f"[{tag}] round of 256 cycles x {REL_SESSIONS} sessions, host clock in turns "
+        f"(clean, faulted, faulted, clean): clean median {out['clean_round_ms']:.3f} ms, "
+        f"faulted (BER 1e-2, every target, secded) {out['faulted_round_ms']:.3f} ms (all ms: "
+        f"clean {', '.join(f'{x:.3f}' for x in times['clean'])}; faulted "
+        f"{', '.join(f'{x:.3f}' for x in times['faulted'])}); profiled round: clean wall "
+        f"{prof_out['clean']['wall_ms']:.3f} ms, device busy "
+        f"{prof_out['clean']['busy_ms']:.3f} ms; faulted wall "
+        f"{prof_out['faulted']['wall_ms']:.3f} ms, device busy "
+        f"{prof_out['faulted']['busy_ms']:.3f} ms; the draw alone {draw_ms:.4f} ms host-paced, "
+        f"{draw_busy:.4f} ms device busy ("
+        + (f"{100 * draw_busy / prof_out['faulted']['busy_ms']:.1f}%"
+           if prof_out["faulted"]["busy_ms"] else "share not measured")
+        + " of the faulted round's device time); the faulted round's kernels: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in prof_out["faulted"]["top_ms"].items()))
+    return out
+
+
+def sweep_on_card(tag: str) -> dict:
+    """``run_sweep`` on the card: sparse_opt and dense, density 0.25, no ECC
+    and SECDED, BERs 0, 1e-3 and 1e-2 on all three targets, 4 patients x 2
+    test records at the paper's geometry; every BER-0 point bit-exact."""
+    from repro_torch.core.pipeline import HDCConfig
+    from repro_torch.reliability import sweep
+
+    t0 = time.perf_counter()
+    points = sweep.run_sweep(variants=("sparse_opt", "dense"), densities=(0.25,),
+                             bers=(0.0, 1e-3, 1e-2), schemes=("none", "secded"),
+                             base_cfg=HDCConfig(), n_patients=SWEEP_PATIENTS,
+                             n_test=SWEEP_TESTS, seed=SEED)
+    took = time.perf_counter() - t0
+    log(f"[{tag}] sweep points: " + json.dumps(points))
+    zero = [p for p in points if p["ber"] == 0.0]
+    expect(len(points) == 12 and len(zero) == 4
+           and all(p["zero_ber_bitexact"] for p in zero),
+           f"{tag}: a BER-0 sweep point is not bit-exact with the clean fleet")
+    log(f"[{tag}] run_sweep: {len(points)} points, {points[0]['sessions']} sessions x "
+        f"{points[0]['frames'] // points[0]['sessions']} frames each, every BER-0 point "
+        f"bit-exact; {took:.2f} s")
+    return {"points": len(points), "sweep_s": took}
+
+
+def monitor_on_card(tag: str, bank: dict, records) -> dict:
+    """64 sessions whose streams lose two electrodes (``degrade_batch``,
+    dead): each round ``FleetChannelMonitor.observe`` reads the round's
+    codes and changed masks go to a masked card fleet's and a masked CPU
+    fleet's ``set_channel_mask``; the quarantine must come to equal
+    ``degrade_batch``'s mask, and every decision of the card fleet equal the
+    CPU fleet's."""
+    from repro_torch.reliability import channels
+    from repro_torch.serve.fleet import StreamingFleet
+
+    names = list(bank)
+    owners = [names[i % len(names)] for i in range(MONITOR_SESSIONS)]
+    rng = np.random.default_rng(SEED + 21)
+    streams, _ = _adapt_streams(bank, records, MONITOR_SESSIONS, MONITOR_ROUNDS, rng)
+    bad, live = channels.degrade_batch(streams, 2, "dead", seed=SEED)
+    fleet = StreamingFleet(bank, owners, channel_masking=True)
+    cpu = StreamingFleet({n: p.to("cpu") for n, p in bank.items()}, owners,
+                         channel_masking=True)
+    mon = channels.FleetChannelMonitor(MONITOR_SESSIONS, bad.shape[2])
+    observe_ms, changed, quarantined_at = [], [], None
+    for r in range(MONITOR_ROUNDS):
+        batch = bad[:, r * 256:(r + 1) * 256]
+        t0 = time.perf_counter()
+        m = mon.observe(batch)
+        observe_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(m, fleet.channel_masks):
+            fleet.set_channel_mask(m)
+            cpu.set_channel_mask(m)
+            changed.append(r)
+        if quarantined_at is None and np.array_equal(m, live):
+            quarantined_at = r
+        expect(all(_same_decisions(a, b) for a, b in
+                   zip(fleet.push_codes(batch), cpu.push_codes(batch))),
+               f"{tag}: round {r}: the monitored card fleet differs from the CPU fleet")
+    expect(quarantined_at is not None and np.array_equal(mon.masks, live),
+           f"{tag}: the monitor's masks never equal degrade_batch's")
+    per = float(np.median(observe_ms)) / MONITOR_SESSIONS
+    log(f"[{tag}] monitor: {MONITOR_SESSIONS} sessions, 2 dead electrodes each, quarantined "
+        f"from round {quarantined_at} ({len(mon.events)} events; masks set in rounds "
+        f"{changed}); {MONITOR_ROUNDS} rounds of decisions equal to a masked CPU fleet; "
+        f"observe ms a round {', '.join(f'{x:.3f}' for x in observe_ms)}, "
+        f"{per * 1e3:.1f} us a session-round (host)")
+    return {"observe_ms": observe_ms, "observe_us_per_session_round": per * 1e3,
+            "quarantined_at": quarantined_at}
+
+
+def reliability_phase(tag: str, sparse_bank: dict, dense_bank: dict, records) -> dict:
+    t_phase = time.perf_counter()
+    out = {"sparse_compim": faulted_fleet(f"{tag} sparse_compim", sparse_bank, records),
+           "dense": faulted_fleet(f"{tag} dense", dense_bank, records)}
+    out["sweep"] = sweep_on_card(tag)
+    out["monitor"] = monitor_on_card(tag, sparse_bank, records)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 10 took {out['phase_s']:.1f} s")
+    return out
+
 
 class Launches:
     """Reads each path's kernel launches, counted from zero."""
@@ -1787,8 +2109,8 @@ def main() -> int:
 
     # phase 6: dense, the same codes; fit_iterative and adapt, short
     launches.start()
-    res = train_and_detect("dense", HDCConfig(variant="dense"), records,
-                           calibrate=False)
+    res = dense = train_and_detect("dense", HDCConfig(variant="dense"), records,
+                                   calibrate=False)
     serve_fleet("dense", res, SESSIONS, STEADY_ROUNDS, profile=True)
     dense_bank = fit_phase("dense", res, patients=1)
     adaptive_fleet("dense", dense_bank, res["records"], DENSE_ADAPT_SESSIONS,
@@ -1824,6 +2146,11 @@ def main() -> int:
     elastic = elastic_phase("elastic", fit_bank, records)
     launches.stop("elastic")
 
+    # phase 10: reliability on phase 8's bank and phase 6's dense bank
+    launches.start()
+    rel = reliability_phase("reliability", fit_bank, dense["bank"], records)
+    launches.stop("reliability")
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kc.rows[name]
@@ -1833,7 +2160,7 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
                      "device_ms": r["device_ms"],
-                     **{k: r[k] for k in ("modes", "fused", "launch_split_us",
+                     **{k: r[k] for k in ("modes", "faulted_bank", "fused", "launch_split_us",
                                             "fused_launch_split_us") if k in r}})
         if name == "hdc_am":
             rows[-1]["epilogue_launches"] = (launches.total("am_epilogue_sparse")
@@ -1850,6 +2177,9 @@ def main() -> int:
                                             "save_full4_ms",
                                             "spill_ms", "compared", "replayed_decisions",
                                             "profiled")}))
+    log("[reliability] " + json.dumps(
+        {k: v if k in ("sweep", "monitor", "phase_s") else
+         {kk: vv for kk, vv in v.items() if kk != "round_ms"} for k, v in rel.items()}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -158,6 +158,40 @@ def random_dense_packed(generator: torch.Generator, shape: tuple[int, ...],
 # elementwise packed ops
 # ---------------------------------------------------------------------------
 
+def word_parity(words: torch.Tensor) -> torch.Tensor:
+    """Per-word parity (popcount mod 2) of int32-carried words -> int32 0/1;
+    the ECC codecs' primitive (``reliability/ecc.py``)."""
+    return lax_popcount(words) & 1
+
+
+# uniforms drawn at once by ``random_flip_mask`` (64 MB of float32): a mask
+# of any size is drawn in pieces of at most this many bits
+_FLIP_CHUNK = 1 << 24
+
+
+def random_flip_mask(generator: torch.Generator, shape: tuple[int, ...], p,
+                     bits: int = WORD) -> torch.Tensor:
+    """Bernoulli(p) bit-flip masks: (*shape,) int32 words whose low ``bits``
+    bits are each set independently with probability ``p`` (high bits
+    zero), drawn on the generator's device.  ``p == 0`` gives all zeros and
+    ``p == 1`` every low bit.  ``jax.random``'s stream cannot be replayed:
+    parity with the reference hands both packages the same masks."""
+    if not 1 <= bits <= WORD:
+        raise ValueError(f"bits={bits} must be in [1, {WORD}]")
+    dev = generator.device
+    n = int(np.prod(shape, dtype=np.int64))
+    shifts = torch.arange(bits, dtype=torch.int32, device=dev)
+    rows = max(1, _FLIP_CHUNK // bits)
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    for i in range(0, n, rows):
+        m = min(rows, n - i)
+        flips = torch.rand((m, bits), generator=generator, device=dev) < p
+        # distinct bits: the int32 sum is their OR and never overflows, bit
+        # 31 included (it adds -2**31 to a sum below 2**31)
+        out[i:i + m] = (flips.to(torch.int32) << shifts).sum(-1, dtype=torch.int32)
+    return out.reshape(shape)
+
+
 def or_reduce(words: torch.Tensor, axis: int) -> torch.Tensor:
     """OR over ``axis`` as a pairwise tree (OR is associative: exact)."""
     axis = axis % words.ndim

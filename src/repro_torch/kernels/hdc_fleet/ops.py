@@ -86,12 +86,18 @@ fleet_counts_kernel.launches = 0
 def fleet_counts_fused(tables: torch.Tensor, owner: torch.Tensor,
                        codes: torch.Tensor, filled: torch.Tensor,
                        lengths: torch.Tensor, cfg: HDCConfig,
+                       tables_xor: torch.Tensor | None = None,
                        chan_mask: torch.Tensor | None = None) -> torch.Tensor:
     """(S, T, C) raw uint8 codes -> (S, K+1, D) int32 slot counts in one
     fused pass: pads the cycle axis to a 32 multiple (padded cycles gather
     row 0 and are masked off) and builds the emission masks from
-    ``(filled, lengths)``."""
+    ``(filled, lengths)``.  ``tables_xor`` (the bank's shape), the fault
+    injection hook of ``reliability/faults.py``, is XORed into the bank
+    here, next to the launch, so the kernel reads the faulted bank through
+    its usual operand."""
     s, t, c = codes.shape
+    if tables_xor is not None:
+        tables = tables ^ tables_xor
     t32 = -(-t // 32) * 32
     if t32 != t:
         codes = torch.cat([codes, codes.new_zeros((s, t32 - t, c))], 1)

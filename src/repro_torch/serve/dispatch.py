@@ -1,7 +1,7 @@
 """Multi-patient dispatch machinery for the fleet (port of
 ``repro.serve.dispatch``: bank validation, pre-bound codebooks, the
-code-domain spatial encode for every variant, batched frame encoding and
-owner-gathered AM scoring).
+code-domain spatial encode for every variant, batched frame encoding,
+owner-gathered AM scoring and its ECC-protected read).
 
 Binding is a pure function of (channel, LBP code), so the serving path
 precomputes the BOUND packed HV per (channel, code) once per patient; per
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import binding, bundling, hv
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+from repro_torch.reliability import ecc
 
 
 def datapath_key(cfg: HDCConfig) -> HDCConfig:
@@ -208,3 +209,25 @@ def owner_am_scores(frames: torch.Tensor, class_rows: torch.Tensor,
     if cfg.variant == "dense":
         return cfg.dim - hv.hamming(q, class_rows)
     return hv.overlap(q, class_rows)
+
+
+def owner_am_scores_protected(frames: torch.Tensor, rows: torch.Tensor,
+                              check: torch.Tensor, cfg: HDCConfig, scheme: str
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """AM scoring through the ECC word codec (``reliability/ecc.py``):
+    ``rows`` (S, C, W) are the possibly corrupted class rows as read and
+    ``check`` their possibly corrupted check words; every word is decoded
+    once a step and the corrected rows score the (S, K, W) frames.  Returns
+    ``(scores (S, K, C), counters (S, 3) int32)``, the counters this read's
+    per-session word counts of [corrected, detected, uncorrectable]
+    (detected = corrected + uncorrectable for SECDED; parity only
+    detects)."""
+    corrected, status = ecc.decode(rows, check, scheme)
+    scores = owner_am_scores(frames, corrected[:, None], cfg)
+    red = tuple(range(1, status.ndim))
+    counters = torch.stack([
+        (status == ecc.CORRECTED).sum(red, dtype=torch.int32),
+        (status != ecc.CLEAN).sum(red, dtype=torch.int32),
+        (status == ecc.UNCORRECTABLE).sum(red, dtype=torch.int32),
+    ], dim=-1)
+    return scores, counters

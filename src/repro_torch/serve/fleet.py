@@ -43,13 +43,23 @@ drop out of the spatial bundle with renormalised denominators.  The mask
 survives ``reset`` and rides ``save``'s manifest meta.  Without masking
 the step makes the kernel call it always made.
 
+``faults=FaultConfig(...)`` (``reliability/faults.py``) makes the fleet a
+degradation testbench: every step corrupts the reads of the enabled
+memories (the codebook bank, XORed next to the fleet-kernel launch; the
+AM class rows, read through the ECC word codec when a scheme is set; the
+carried counters' low bits) at the configured bit-error rates, and
+``ecc_stats`` accumulates each session's [corrected, detected,
+uncorrectable] word counts on the device.  Each (tile, round) draws its
+masks on the fleet's device from ``faults.step_seed``; stuck-mode draws are
+kept per tile until ``set_ber`` moves the BERs.  ``faults=None`` makes the
+step's fault-free call; BER 0 is bit-exact with it.
+
 ``adapt`` applies one gated online update to every session at once (plain
 torch, ``core/online.py``), and ``save``/``restore`` checkpoint the whole
 state mid-stream (``ckpt/checkpoint.py``).
 
 Decisions are bit-exact with the reference fleet.  Not ported: mesh
-placement, tiles spread over several cards, AOT warm-up, fault injection,
-ECC and stage probes.
+placement, tiles spread over several cards, AOT warm-up and stage probes.
 """
 
 from __future__ import annotations
@@ -68,6 +78,9 @@ from repro_torch.core import hv, online
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
+from repro_torch.reliability import ecc as rel_ecc
+from repro_torch.reliability import faults as rel_faults
+from repro_torch.reliability.faults import FaultConfig, FaultPlan, StepDraw
 from repro_torch.serve import dispatch
 from repro_torch.serve.engine import FrameDecision, _pack_frames
 
@@ -163,13 +176,30 @@ class FleetRound:
 def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
                 thresholds: torch.Tensor, chunk: torch.Tensor,
                 lengths: torch.Tensor, chan_mask: torch.Tensor | None = None,
-                *, cfg: HDCConfig) -> tuple[FleetState, FleetOut]:
+                *, cfg: HDCConfig, faults: FaultPlan | None = None,
+                draw: StepDraw | None = None) -> tuple:
     """Advance one tile's S sessions by one padded chunk batch: chunk (S,
     t_pad, channels) uint8 raw codes, lengths (S,) int32 valid cycles,
-    optional chan_mask (S, channels) int32 (1 = live)."""
+    optional chan_mask (S, channels) int32 (1 = live).  Returns (state,
+    out).
+
+    With a fault plan, ``draw`` holds this step's masks (``faults.draw_step``
+    or any other source): the bank's read is faulted next to the kernel
+    launch and the carried counters' before it; the AM rows and check words
+    (encoded from the clean rows) are read faulted, and with an ECC scheme
+    the corrected rows score.  The step then also returns the (S, 3) int32
+    [corrected, detected, uncorrectable] word counts of this read (zeros
+    without a scheme)."""
     s = chunk.shape[0]
+    counts_in = state.counts
+    tables_xor = None
+    if faults is not None:
+        if faults.tables:
+            tables_xor = rel_faults.xor_mask(tables, draw.tables)
+        if faults.counts:
+            counts_in = rel_faults.flip_counts(counts_in, draw.counts)
     seg = fleet_ops.fleet_counts_fused(tables, owner, chunk, state.filled,
-                                       lengths, cfg,
+                                       lengths, cfg, tables_xor=tables_xor,
                                        chan_mask=chan_mask)  # (S, K+1, D)
     n_emit = torch.div(state.filled + lengths, cfg.window,
                        rounding_mode="floor")
@@ -177,14 +207,29 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
     # session emits, and to the tail otherwise
     emits = n_emit > 0
     frame_counts = seg[:, :-1].clone()
-    frame_counts[:, 0] += torch.where(emits[:, None], state.counts, 0)
+    frame_counts[:, 0] += torch.where(emits[:, None], counts_in, 0)
     frames = _pack_frames(frame_counts, thresholds[:, None, None], cfg)
-    scores = dispatch.owner_am_scores(frames, state.class_rows[:, None], cfg)
+    ecc_counts = None
+    rows, check = state.class_rows, None
+    if faults is not None:
+        if faults.ecc != "none":
+            check = rel_ecc.encode(rows, faults.ecc)
+        if faults.am:
+            rows = rel_faults.flip_words(rows, draw.am)
+            if check is not None:
+                check = rel_faults.flip_words(check, draw.am_check)
+    if check is not None:
+        scores, ecc_counts = dispatch.owner_am_scores_protected(
+            frames, rows, check, cfg, faults.ecc)
+    else:
+        scores = dispatch.owner_am_scores(frames, rows[:, None], cfg)
+        if faults is not None:
+            ecc_counts = torch.zeros((s, 3), dtype=torch.int32, device=chunk.device)
     sidx = torch.arange(s, device=chunk.device)
     last_slot = torch.clamp(n_emit - 1, min=0).to(torch.int64)
     new_state = replace(
         state,
-        counts=seg[:, -1] + torch.where(emits[:, None], 0, state.counts),
+        counts=seg[:, -1] + torch.where(emits[:, None], 0, counts_in),
         filled=state.filled + lengths - n_emit * cfg.window,
         frame_index=state.frame_index + n_emit,
         last_frame=torch.where(emits[:, None], frames[sidx, last_slot],
@@ -193,7 +238,10 @@ def _fleet_step(state: FleetState, tables: torch.Tensor, owner: torch.Tensor,
                                 state.last_scores),
         has_frame=state.has_frame | emits.to(torch.int32),
     )
-    return new_state, FleetOut(frames=frames, scores=scores)
+    out = FleetOut(frames=frames, scores=scores)
+    if faults is None:
+        return new_state, out
+    return new_state, out, ecc_counts
 
 
 def _fleet_adapt(state: FleetState, labels: torch.Tensor, margin: float,
@@ -243,15 +291,20 @@ class StreamingFleet:
     runs on the bank's device: the card, or the CPU for a bank built with
     ``device="cpu"``.  ``tile`` sets the sessions a tile (default
     ``derive_tile``, capped at the fleet's size rounded up to a power of
-    two); ``channel_masking`` enables ``set_channel_mask``.
+    two); ``channel_masking`` enables ``set_channel_mask``; ``faults``
+    (a ``FaultConfig``) injects bit errors and enables ``set_ber`` and
+    ``ecc_stats``.
     """
 
     def __init__(self, pipelines: Mapping[Hashable, HDCPipeline],
                  owners: Sequence[Hashable], *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 tile: int | None = None, channel_masking: bool = False):
+                 tile: int | None = None, channel_masking: bool = False,
+                 faults: FaultConfig | None = None):
         self._cfg = dispatch.validate_bank(pipelines)
         self._masked = bool(channel_masking)
+        self._faults = faults
+        self._plan = None if faults is None else faults.plan()
         if not owners:
             raise ValueError("StreamingFleet needs at least one session")
         if not buckets or any(b <= 0 for b in buckets):
@@ -317,6 +370,11 @@ class StreamingFleet:
         if self._masked:
             self._cmask_h = np.ones((self._np, self._cfg.channels), np.uint8)
             self._cmask_t = self._put_tiles(self._cmask_h, torch.int32)
+        # fault injection: per-tile (tile_s, 3) int32 ECC word counters on the
+        # device, and each tile's stuck-mode draw (the same every round)
+        if self._plan is not None:
+            self._ecc_t = self._zero_ecc()
+            self._stuck_draws: dict[int, StepDraw] = {}
         # host mirrors: the emission schedule is a function of (filled,
         # lengths), so the host routes results without reading the device
         self._filled_h = np.zeros((self._np,), np.int64)
@@ -372,14 +430,20 @@ class StreamingFleet:
     def _zero_states(self) -> list[FleetState]:
         return [self._zero_state(sl) for sl in self._tile_slices]
 
+    def _zero_ecc(self) -> list[torch.Tensor]:
+        return [torch.zeros((sl.stop - sl.start, 3), dtype=torch.int32,
+                            device=self._device) for sl in self._tile_slices]
+
     def reset(self) -> None:
-        """Zero every accumulator, fill level and frame index, and restore
-        every session's AM to its patient's trained state.  Channel masks
-        stay."""
+        """Zero every accumulator, fill level, frame index and ECC counter,
+        and restore every session's AM to its patient's trained state.
+        Channel masks and the fault campaign stay."""
         self._state_t = self._zero_states()
         self._filled_h[:] = 0
         self._fidx_h[:] = 0
         self._dirty_t = [True] * len(self._tile_slices)
+        if self._plan is not None:
+            self._ecc_t = self._zero_ecc()
 
     @property
     def device(self) -> torch.device:
@@ -413,6 +477,54 @@ class StreamingFleet:
     def frame_indices(self) -> np.ndarray:
         """(S,) frames emitted so far per session."""
         return self._fidx_h[:self._n].copy()
+
+    # -- fault injection ------------------------------------------------------
+
+    @property
+    def fault_config(self) -> FaultConfig | None:
+        """The active fault campaign (None = fault-free fleet)."""
+        return self._faults
+
+    def set_ber(self, ber: float) -> None:
+        """Move every enabled fault target to one bit-error rate; which
+        targets, the mode and the ECC scheme are fixed at construction."""
+        if self._faults is None:
+            raise ValueError(
+                "fleet was built without faults; pass "
+                "StreamingFleet(..., faults=FaultConfig(...)) to enable "
+                "fault injection")
+        self._faults = self._faults.with_ber(ber)
+        self._stuck_draws.clear()
+
+    @property
+    def ecc_stats(self) -> np.ndarray:
+        """(S, 3) int64 per-session ECC word counts since the last ``reset``:
+        [corrected, detected, uncorrectable] (detected counts every faulty
+        word seen; SECDED: corrected + uncorrectable, parity only detects).
+        Zeros without an ECC scheme or a fault plan."""
+        if self._plan is None:
+            return np.zeros((self._n, 3), np.int64)
+        return torch.cat(self._ecc_t).cpu().numpy().astype(np.int64)[:self._n]
+
+    def _step_draw(self, k: int, phase: int) -> StepDraw:
+        """Tile ``k``'s fault draw for the round at ``phase``, on the fleet's
+        device, seeded by ``faults.step_seed``; a stuck-mode draw is the
+        same every round and is kept until ``set_ber``."""
+        plan = self._plan
+        if plan.mode == "stuck" and k in self._stuck_draws:
+            return self._stuck_draws[k]
+        sl = self._tile_slices[k]
+        rows = (sl.stop - sl.start, self._class_rows0.shape[1], self._cfg.words)
+        draw = rel_faults.draw_step(
+            plan, self._faults.ber_vector(),
+            rel_faults.step_seed(plan, tile=k, n_tiles=len(self._tile_slices),
+                                 phase=phase),
+            tables_shape=self._tables.shape, rows_shape=rows,
+            counts_shape=(rows[0], self._cfg.dim), window=self._cfg.window,
+            device=self._device)
+        if plan.mode == "stuck":
+            self._stuck_draws[k] = draw
+        return draw
 
     # -- channel masking ------------------------------------------------------
 
@@ -534,7 +646,8 @@ class StreamingFleet:
             t_pad = self._bucket_for(int(round_len.max()))
             width = min(t_pad, total - pos)
             n_emit = (self._filled_h + round_len) // self._cfg.window
-            slot = self._stage_phase & 1
+            phase = self._stage_phase
+            slot = phase & 1
             self._stage_phase += 1
             outs = []
             for k, sl in enumerate(self._tile_slices):
@@ -545,10 +658,16 @@ class StreamingFleet:
                                                                 pos:pos + width]
                 chunk = stage.to(dev, non_blocking=True)
                 lens = torch.as_tensor(round_len32[sl], device=dev)
-                self._state_t[k], fo = _fleet_step(
-                    self._state_t[k], self._tables, self._param_owner_t[k],
-                    self._thresholds_t[k], chunk, lens,
-                    self._cmask_t[k] if self._masked else None, cfg=self._cfg)
+                args = (self._state_t[k], self._tables, self._param_owner_t[k],
+                        self._thresholds_t[k], chunk, lens,
+                        self._cmask_t[k] if self._masked else None)
+                if self._plan is None:
+                    self._state_t[k], fo = _fleet_step(*args, cfg=self._cfg)
+                else:
+                    self._state_t[k], fo, ecc_c = _fleet_step(
+                        *args, cfg=self._cfg, faults=self._plan,
+                        draw=self._step_draw(k, phase))
+                    self._ecc_t[k] += ecc_c
                 if cuda:  # the staging slot is free once this step has run
                     done = torch.cuda.Event()
                     done.record()

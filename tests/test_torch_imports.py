@@ -51,9 +51,12 @@ def _imported_modules(path: Path) -> set[str]:
 def test_import_scan_covers_every_package():
     """The scan above reads every package of the port, ``ckpt`` included."""
     packages = {p.parent.name for p in PORT_FILES}
-    assert {"core", "kernels", "serve", "ckpt", "data"} <= packages
+    assert {"core", "kernels", "serve", "ckpt", "data", "reliability"} <= packages
     assert ROOT / "src" / "repro_torch" / "ckpt" / "checkpoint.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "serve" / "lifecycle.py" in PORT_FILES
+    for name in ("ecc", "faults", "sweep", "channels"):
+        assert ROOT / "src" / "repro_torch" / "reliability" / f"{name}.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "core" / "hwmodel.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -71,7 +74,10 @@ def test_every_port_module_imports_without_building():
                                                    "repro_torch.")]
     assert {"repro_torch.serve.fleet", "repro_torch.serve.engine",
             "repro_torch.serve.lifecycle", "repro_torch.ckpt.checkpoint",
-            "repro_torch.convert"} <= set(names)
+            "repro_torch.convert", "repro_torch.core.hwmodel",
+            "repro_torch.reliability", "repro_torch.reliability.ecc",
+            "repro_torch.reliability.faults", "repro_torch.reliability.sweep",
+            "repro_torch.reliability.channels"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert build._lib is None
@@ -176,12 +182,14 @@ def _small_bank(device="cpu"):
     return {"p": pipe.train_one_shot(codes, labels)}
 
 
-@pytest.mark.parametrize("kind", ["engine", "session", "fleet", "elastic"])
+@pytest.mark.parametrize("kind", ["engine", "session", "fleet", "elastic", "faulted"])
 def test_serving_objects_without_a_card_raise(monkeypatch, kind):
     """Without a card, a bank built with ``device=None`` raises at its
-    pipelines, so no engine, session or fleet is built on the CPU behind
-    the caller's back; they have no device argument of their own and run
-    where their pipelines lie."""
+    pipelines, so no engine, session or fleet (faulted or not) is built on
+    the CPU behind the caller's back; they have no device argument of their
+    own and run where their pipelines lie, and a faulted fleet draws its
+    masks there."""
+    from repro_torch.reliability.faults import FaultConfig
     from repro_torch.serve.engine import SeizureSession, ServingEngine
     from repro_torch.serve.fleet import StreamingFleet
     from repro_torch.serve.lifecycle import ElasticFleet
@@ -189,7 +197,10 @@ def test_serving_objects_without_a_card_raise(monkeypatch, kind):
     build_obj = {"engine": lambda bank: ServingEngine(bank),
                  "session": lambda bank: SeizureSession(bank["p"]),
                  "fleet": lambda bank: StreamingFleet(bank, ["p"]),
-                 "elastic": lambda bank: ElasticFleet(bank)}[kind]
+                 "elastic": lambda bank: ElasticFleet(bank),
+                 "faulted": lambda bank: StreamingFleet(
+                     bank, ["p"], faults=FaultConfig(tables=0.1, am=0.1, counts=0.1,
+                                                     ecc="secded"))}[kind]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_obj(_small_bank(device=None))
@@ -220,3 +231,25 @@ def test_engine_and_session_dispatch_on_tensor_device_only():
         ServingEngine(meta).serve([("p", codes)])
     with pytest.raises(ValueError, match="unsupported devices"):
         SeizureSession(meta["p"]).push(codes)
+
+
+def test_sweep_without_a_card_raises(monkeypatch):
+    """The sweep's entry points run on the card by default: without one,
+    they raise; ``device="cpu"`` is the only way onto the plain path.  A
+    faulted CPU fleet's draws lie on the CPU."""
+    from repro_torch.reliability import faults, sweep
+    from repro_torch.serve.fleet import StreamingFleet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HDCConfig(dim=256, channels=4, window=32)
+    sessions = {"train": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.train_pipelines("sparse_opt", 0.25, sessions, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.run_sweep(base_cfg=cfg, n_patients=1, n_test=1,
+                        record_kw=dict(pre_s=0.2, ictal_s=0.2, post_s=0.1))
+    fleet = StreamingFleet(_small_bank(), ["p"], faults=faults.FaultConfig(
+        tables=0.1, am=0.1, counts=0.1, ecc="secded", mode="stuck"))
+    draw = fleet._step_draw(0, 0)
+    for d in (draw.tables, draw.am, draw.am_check, draw.counts):
+        assert d.sel.device.type == "cpu" and d.val.device.type == "cpu"
