@@ -90,7 +90,26 @@ Phases (one line each, any failure exits non-zero):
    that lose two electrodes (``degrade_batch``, dead), its masks fed to a
    masked card fleet and a masked CPU fleet each round (every decision
    equal; the quarantine equal to ``degrade_batch``'s mask), ``observe``
-   timed per session-round.
+   timed per session-round;
+11. deploy and tooling: the deploy artifact of phase 4's fleet shape
+   (``save_aot``) and a fresh fleet warmed from it (no ``nvcc``, each
+   step captured as a CUDA graph; capture times); under
+   ``no_recompiles`` the warmed fleet's steady, ragged and 768-cycle
+   pushes and an adapt equal an eager fleet's (decisions, verdicts, state
+   after each); ``no_transfers``: ``push_raw`` clean under
+   ``set_sync_debug_mode("error")``, ``collect_decisions`` refused; a
+   warmed masked ``ElasticFleet`` (spills captured before their tile's
+   first step, churn, compaction, a re-spill with no capture), a faulted
+   round at BER 1e-2, the dense fleet and ``ServingEngine.prewarm`` each
+   against eager; steady rounds replayed and eager in turns, one of each
+   profiled (device busy, kernels, the fleet kernel under a graph launch),
+   fixed and elastic at 1024 live; ``energy_per_prediction`` and
+   ``area_inventory`` for the four variants equal on the card and the CPU,
+   their ratios beside the paper's; and ``launch/serve.py`` in
+   subprocesses: ``compile``, a warm start (0 compiled), a cold start from
+   a copy of ``src/`` with an empty build directory with and without the
+   artifact, a stale artifact, a SIGTERM drain and ``--resume``, the
+   channel monitor.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -186,6 +205,7 @@ PATH_KERNELS = {
     "online": ("hdc_encoder", "hdc_am", "hdc_fleet"),
     "elastic": ("hdc_fleet",),
     "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
+    "deploy": ("hdc_fleet",),
 }
 
 
@@ -2053,6 +2073,610 @@ class Launches:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: deploy artifacts, CUDA-graph warm-up, the guards, the CLI, the
+# hardware model
+# ---------------------------------------------------------------------------
+
+DEPLOY_STEADY = 6        # steady rounds of the warmed fleet against an eager one
+DEPLOY_TURNS = 3         # timed steady rounds each way, in turns
+CLI_SESSIONS = 1024
+CLI_PATIENTS = 16
+CLI_ROUNDS = 4
+CLI_TIMEOUT = 300        # seconds a CLI subprocess may take
+MONITOR_CLI_SESSIONS = 64
+HW_WINDOWS = 4
+# the paper's ratios of the optimised design against naive sparse and dense
+PAPER_RATIOS = {"energy_vs_naive": 1.73, "area_vs_naive": 2.20,
+                "energy_vs_dense": 7.50, "area_vs_dense": 3.24}
+
+
+def _streams(res: dict, sessions: int, need: int, seed: int) -> np.ndarray:
+    """(sessions, need, channels) codes: session i streams a held-out record
+    of patient i % P from a seeded offset, as ``serve_fleet`` cuts them."""
+    rng = np.random.default_rng(seed)
+    n_pat = len(res["bank"])
+    host = [r[1].cpu().numpy() for r in res["records"]]
+    out = np.empty((sessions, need, res["cfg"].channels), np.uint8)
+    for i in range(sessions):
+        held = host[i % n_pat][1:]
+        rec = held[(i // n_pat) % held.shape[0]]
+        off = int(rng.integers(0, rec.shape[0] - need))
+        out[i] = rec[off:off + need]
+    return out
+
+
+def _same_state(a, b) -> bool:
+    from dataclasses import fields
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name)) for f in fields(a))
+
+
+def _script(streams: np.ndarray, steady: int, n_classes: int, seed: int) -> list:
+    """A push script: ``steady`` rounds of 256 cycles, a ragged round, one
+    push of 3 x 256 cycles read only after all three rounds ran, an adapt
+    (each session's true label drawn, -1 for every fourth)."""
+    rng = np.random.default_rng(seed)
+    n = streams.shape[0]
+    out, pos = [], 0
+    for _ in range(steady):
+        out.append(("push", [streams[i, pos:pos + 256] for i in range(n)]))
+        pos += 256
+    ragged = rng.integers(0, 257, n)
+    ragged[:8] = 0
+    out.append(("push", [streams[i, pos:pos + int(ragged[i])] for i in range(n)]))
+    pos += 256
+    out.append(("raw", [streams[i, pos:pos + 3 * 256] for i in range(n)]))
+    labels = rng.integers(0, n_classes, n)
+    labels[3::4] = -1
+    out.append(("adapt", labels))
+    return out
+
+
+def _run_script(fleet, script) -> list:
+    """Each item's result (decisions; ``adapt``'s applied mask) and a copy
+    of the fleet's state after it."""
+    out = []
+    for kind, arg in script:
+        if kind == "push":
+            r = fleet.push(arg)
+        elif kind == "raw":
+            rounds = fleet.push_raw(arg)
+            expect(len(rounds) == 3, f"a 768-cycle push made {len(rounds)} rounds, not 3")
+            r = fleet.collect_decisions(rounds)
+        else:
+            r = fleet.adapt(arg)
+        out.append((r, fleet.state))
+    return out
+
+
+def _expect_same_runs(what: str, got: list, want: list) -> int:
+    """Equal results and states item by item; returns the decisions compared."""
+    n = 0
+    for i, ((rg, sg), (rw, sw)) in enumerate(zip(got, want)):
+        if isinstance(rg, np.ndarray):
+            expect(np.array_equal(rg, rw), f"{what}: item {i}: adapt verdicts differ")
+        else:
+            expect(len(rg) == len(rw) and all(_same_decisions(a, b) for a, b in zip(rg, rw)),
+                   f"{what}: item {i}: decisions differ")
+            n += sum(len(d) for d in rg)
+        expect(_same_state(sg, sw), f"{what}: item {i}: states differ")
+    return n
+
+
+def _graph_round_profile(push) -> dict:
+    """One profiled round: host wall, device busy and idle share, device
+    kernels, graph launches, and whether the fleet kernel ran inside a
+    graph launch (its correlation id is a ``cudaGraphLaunch``'s)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        push()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, _ = device_busy(prof)
+    evs = prof.profiler.kineto_results.events()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    dev = [e for e in evs if e.device_type() == cuda_t]
+    kernels = [e for e in dev if not e.name().startswith(("Memcpy", "Memset"))]
+    graph_ids = {e.correlation_id() for e in evs if e.name() == "cudaGraphLaunch"}
+    fleet_k = [e for e in kernels if "hdc_fleet" in e.name()]
+    in_graph = [e for e in fleet_k if e.correlation_id() in graph_ids
+                or e.linked_correlation_id() in graph_ids]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle": 1.0 - busy / wall if wall > 0 else None,
+            "kernels": len(kernels), "graph_launches": len(graph_ids),
+            "fleet_kernels": len(fleet_k), "fleet_kernels_in_graph": len(in_graph)}
+
+
+def _turns(push_graph, push_eager) -> tuple[list, list]:
+    """Steady rounds timed in turns graph, eager, eager, graph, ...
+    (``DEPLOY_TURNS`` each); ``push_*(i)`` pushes a fleet's i-th round and
+    collects its decisions; host clock around it."""
+    graph_ms, eager_ms = [], []
+    for use_graph in ([True, False, False, True] * DEPLOY_TURNS)[:2 * DEPLOY_TURNS]:
+        times, push = (graph_ms, push_graph) if use_graph else (eager_ms, push_eager)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        push(len(times))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return graph_ms, eager_ms
+
+
+def deploy_fixed(tag: str, res: dict, tmp: str) -> dict:
+    """The artifact of phase 4's fleet shape, a fresh fleet warmed from it
+    with no nvcc build, its replays against an eager fleet under
+    ``no_recompiles``, the guards, and steady rounds timed both ways."""
+    import os
+
+    from repro_torch.analysis import guards
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.runtime import aot
+    from repro_torch.serve.fleet import StreamingFleet
+
+    bank, owners, cfg = res["bank"], res["owners"], res["cfg"]
+    n = len(owners)
+    art_dir = os.path.join(tmp, "fleet_aot")
+    t0 = time.perf_counter()
+    manifest = StreamingFleet(bank, owners).save_aot(art_dir)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    art = aot.load_artifact(art_dir)
+    expect(art is not None, f"{tag}: the artifact just written is refused")
+    builds = len(build.BUILD_LOG)
+    warm = StreamingFleet(bank, owners)
+    t0 = time.perf_counter()
+    stats = warm.warmup(aot=art)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    expect(len(build.BUILD_LOG) == builds, f"{tag}: warm-up from the artifact ran nvcc")
+    expect(stats["compiled"] == 0 and stats["loaded"] == len(manifest["entries"]),
+           f"{tag}: warm-up from the artifact: {stats}, {len(manifest['entries'])} entries")
+    caps = warm.capture_ms
+    log(f"[{tag}] artifact: {len(manifest['entries'])} entries + the kernel library "
+        f"({manifest['library']}) in {save_ms:.1f} ms; a fresh fleet warmed from it "
+        f"in {warm_ms:.1f} ms ({stats}, 0 nvcc builds); captures ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in caps.items()))
+
+    streams = _streams(res, n, 256 * DEPLOY_STEADY + 256 + 3 * 256, SEED + 11)
+    script = _script(streams, DEPLOY_STEADY, cfg.n_classes, SEED + 11)
+    before = fleet_counts_kernel.launches
+    with guards.no_recompiles() as rec:
+        got = _run_script(warm, script)
+    replay_launches = fleet_counts_kernel.launches - before
+    rounds = DEPLOY_STEADY + 1 + 3
+    expect(replay_launches == rounds,
+           f"{tag}: {rounds} replayed rounds counted {replay_launches} fleet launches")
+    eager = StreamingFleet(bank, owners)
+    want = _run_script(eager, script)
+    compared = _expect_same_runs(f"{tag}: warmed fleet vs eager", got, want)
+    log(f"[{tag}] warmed fleet: {DEPLOY_STEADY} steady rounds, a ragged round, a 768-cycle "
+        f"push (3 replays before collect_decisions) and an adapt under no_recompiles "
+        f"({len(rec.compiled)} builds/captures/eager shapes): {compared} decisions, the "
+        f"adapt verdicts and the state after each item equal to an eager fleet; "
+        f"{replay_launches} fleet-kernel launches counted from replays")
+
+    # the guards: a steady push_raw never waits; reading decisions does
+    chunks = script[0][1]
+    for f in (warm, eager):
+        with guards.no_transfers():
+            raw = f.push_raw(chunks)
+        try:
+            with guards.no_transfers():
+                f.collect_decisions(raw)
+            raised = False
+        except guards.GuardViolation:
+            raised = True
+        expect(raised, f"{tag}: collect_decisions under no_transfers did not raise")
+        f.collect_decisions(raw)
+    log(f"[{tag}] no_transfers: push_raw clean under set_sync_debug_mode('error') on the "
+        "warmed and the eager fleet; collect_decisions raised GuardViolation")
+
+    steady = _streams(res, n, 256 * (DEPLOY_TURNS + 1), SEED + 12)
+
+    def chunks_at(i):
+        return [steady[s, i * 256:(i + 1) * 256] for s in range(n)]
+
+    # both fleets take the same rounds in the same order, so they stay equal
+    graph_ms, eager_ms = _turns(lambda i: warm.push(chunks_at(i)),
+                                lambda i: eager.push(chunks_at(i)))
+    prof_graph = _graph_round_profile(lambda: warm.push(chunks_at(DEPLOY_TURNS)))
+    prof_eager = _graph_round_profile(lambda: eager.push(chunks_at(DEPLOY_TURNS)))
+    expect(_same_state(warm.state, eager.state), f"{tag}: timed rounds left the fleets apart")
+    expect(prof_graph["fleet_kernels_in_graph"] >= 1,
+           f"{tag}: the profiler shows no fleet kernel under a graph launch: {prof_graph}")
+    out = {"save_ms": save_ms, "warmup_ms": warm_ms, "warmup": stats, "capture_ms": caps,
+           "compared": compared, "graph_round_ms": graph_ms, "eager_round_ms": eager_ms,
+           "graph_median_ms": float(np.median(graph_ms)),
+           "eager_median_ms": float(np.median(eager_ms)),
+           "profiled_graph": prof_graph, "profiled_eager": prof_eager}
+    log(f"[{tag}] steady round of 256 cycles x {n} sessions, in turns: graph median "
+        f"{out['graph_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in graph_ms)}), eager "
+        f"median {out['eager_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in eager_ms)}); "
+        f"profiled graph round {json.dumps(prof_graph)}; profiled eager round "
+        f"{json.dumps(prof_eager)}")
+    return out
+
+
+def deploy_elastic(tag: str, bank: dict, records) -> dict:
+    """A warmed masked ``ElasticFleet`` against an eager one on phase 9's
+    kind of schedule, shortened: the wave rises to 1024 live sessions
+    (three spills, each capturing its tile before the tile's first step),
+    two electrodes quarantined on 64 sessions, two churn rounds (a tenth
+    evicted with snapshots, readmitted the round after), an adapt, the last
+    tile emptied and compacted away, and a re-spill that captures nothing.
+    Every decision and the final state equal; then steady rounds at 1024
+    live timed both ways."""
+    from repro_torch.runtime import graphs
+    from repro_torch.serve.lifecycle import ElasticFleet
+
+    kw = dict(tile=ELASTIC_TILE, max_tiles=ELASTIC_MAX_TILES, queue_limit=ELASTIC_QUEUE,
+              channel_masking=True)
+    warm, eager = ElasticFleet(bank, **kw), ElasticFleet(bank, **kw)
+    t0 = time.perf_counter()
+    stats = warm.warmup()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    names = list(bank)
+    rec_of = {f"patient{r[0]}": r[1].cpu().numpy() for r in records}
+    rng = np.random.default_rng(SEED + 13)
+    streams: dict[int, list] = {}   # sid -> [codes of one held-out record, position]
+    fleets = (warm, eager)
+    compared = [0]
+
+    def admit(count: int) -> None:
+        for _ in range(count):
+            name = names[len(streams) % len(names)]
+            sids = {f.admit(name) for f in fleets}
+            expect(len(sids) == 1, f"{tag}: the two fleets gave different session ids")
+            rec = rec_of[name][1 + int(rng.integers(0, rec_of[name].shape[0] - 1))]
+            streams[sids.pop()] = [rec, int(rng.integers(0, rec.shape[0] // 2))]
+        expect(all((k, b) in warm._graphs for k in range(warm.n_tiles)
+                   for b in warm._buckets),
+               f"{tag}: a spilled tile was not captured before its first step")
+
+    def push(sids=None) -> None:
+        sids = sorted(warm.sessions) if sids is None else sids
+        chunks = {}
+        for sid in sids:
+            rec, p = streams[sid]
+            chunks[sid] = rec[p:p + 256]
+            streams[sid][1] = p + 256
+        dw, de = warm.push_sessions(chunks), eager.push_sessions(chunks)
+        for sid in sids:
+            expect(_same_decisions(dw[sid], de[sid]),
+                   f"{tag}: session {sid}: the warmed elastic fleet differs from the eager one")
+            compared[0] += len(dw[sid])
+
+    caps0 = len(graphs.CAPTURE_LOG)
+    for _ in range(4):                       # rise: 256 more sessions a round
+        admit(ELASTIC_TILE)
+        push()
+    spill_caps = len(graphs.CAPTURE_LOG) - caps0
+    masked = sorted(warm.sessions)[:ELASTIC_MASKED]
+    mask = np.ones((len(masked), bank[names[0]].cfg.channels), np.uint8)
+    mask[:, [5, 17]] = 0
+    for f in fleets:
+        f.set_channel_mask(mask, sessions=[f.slot_of(s) for s in masked])
+    push()
+    for _ in range(2):                       # churn
+        out = sorted(rng.choice(sorted(warm.sessions), len(warm.sessions) // 10,
+                                replace=False).tolist())
+        snaps = [f.evict(out) for f in fleets]
+        push()
+        for sid in out:
+            pid = snaps[0][sid].patient_id
+            new = {f.admit(pid, snapshot=s[sid]) for f, s in zip(fleets, snaps)}
+            expect(len(new) == 1, f"{tag}: readmission ids differ")
+            streams[new.pop()] = streams.pop(sid)
+        push()
+    labels = {sid: int(rng.integers(0, 2)) for sid in warm.sessions}
+    verdicts = [f.adapt(labels) for f in fleets]
+    expect(verdicts[0] == verdicts[1], f"{tag}: adapt verdicts differ")
+    last = warm._tile_slices[-1]
+    gone = [sid for sid in warm.sessions if last.start <= warm.slot_of(sid) < last.stop]
+    for f in fleets:
+        f.evict(gone, with_state=False)
+    for sid in gone:
+        del streams[sid]
+    dropped = {f.compact() for f in fleets}
+    expect(dropped == {1}, f"{tag}: compaction dropped {dropped} tiles, not 1 each")
+    push()
+    caps1 = len(graphs.CAPTURE_LOG)
+    admit(len(gone))                          # re-spill: the dropped tile's graphs return
+    expect(len(graphs.CAPTURE_LOG) == caps1, f"{tag}: a re-spill captured again")
+    push()
+    expect(all(_same_state(a, b) for a, b in zip(warm._state_t, eager._state_t)),
+           f"{tag}: the warmed elastic fleet's state differs from the eager one's")
+    live = len(warm.sessions)
+    log(f"[{tag}] warmed masked elastic fleet (warm-up {warm_ms:.1f} ms, {stats}): rise to "
+        f"{live} live over {warm.n_tiles} tiles ({spill_caps} captures by 3 spills, each "
+        f"before its tile's first step), {ELASTIC_MASKED} masked sessions, 2 churn rounds, "
+        f"an adapt, a compaction and a re-spill with no capture: {compared[0]} decisions and "
+        f"the final state equal to an eager elastic fleet")
+
+    def push_all(f):
+        def run(i):
+            chunks = {sid: streams[sid][0][:256] for sid in sorted(f.sessions)}
+            f.push_sessions(chunks)
+        return run
+
+    graph_ms, eager_ms = _turns(push_all(warm), push_all(eager))
+    prof_graph = _graph_round_profile(lambda: push_all(warm)(0))
+    prof_eager = _graph_round_profile(lambda: push_all(eager)(0))
+    out = {"warmup": stats, "warmup_ms": warm_ms, "spill_captures": spill_caps,
+           "compared": compared[0], "live": live, "graph_round_ms": graph_ms,
+           "eager_round_ms": eager_ms, "graph_median_ms": float(np.median(graph_ms)),
+           "eager_median_ms": float(np.median(eager_ms)),
+           "profiled_graph": prof_graph, "profiled_eager": prof_eager}
+    log(f"[{tag}] elastic steady round at {live} live, in turns: graph median "
+        f"{out['graph_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in graph_ms)}), eager "
+        f"median {out['eager_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in eager_ms)}); "
+        f"profiled graph round {json.dumps(prof_graph)}; profiled eager round "
+        f"{json.dumps(prof_eager)}")
+    return out
+
+
+def deploy_variants(tag: str, sparse: dict, dense: dict) -> dict:
+    """Warmed against eager, bit for bit: one faulted round at BER 1e-2
+    (every target, SECDED, the same seed) after a 200-cycle first round,
+    the dense fleet on ``_script``, and ``ServingEngine.prewarm`` + ``serve``
+    against an eager ``serve``."""
+    from repro_torch.reliability.faults import FaultConfig
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.fleet import StreamingFleet
+
+    out = {}
+    bank, owners = sparse["bank"], sparse["owners"]
+    fc = FaultConfig(tables=1e-2, am=1e-2, counts=1e-2, ecc="secded")
+    warm, eager = (StreamingFleet(bank, owners, faults=fc) for _ in range(2))
+    stats = warm.warmup()
+    streams = _streams(sparse, len(owners), 512, SEED + 14)
+    runs = []
+    for f in (warm, eager):
+        f.push([s[:200] for s in streams])      # mid-window counters
+        runs.append(_run_script(f, [("push", [s[200:456] for s in streams])]))
+    n = _expect_same_runs(f"{tag}: faulted round", runs[0], runs[1])
+    expect(np.array_equal(warm.ecc_stats, eager.ecc_stats) and warm.ecc_stats.any(),
+           f"{tag}: faulted ECC counts differ or are all zero")
+    out["faulted"] = {"warmup": stats, "decisions": n,
+                      "ecc_words": warm.ecc_stats.sum(0).tolist()}
+    log(f"[{tag}] faulted fleet (BER 1e-2, every target, SECDED) warmed {stats}: the "
+        f"replayed faulted round equals the eager one with the same seed ({n} decisions, "
+        f"state, ECC counts {out['faulted']['ecc_words']})")
+
+    dbank, downers = dense["bank"], dense["owners"]
+    warm, eager = StreamingFleet(dbank, downers), StreamingFleet(dbank, downers)
+    stats = warm.warmup()
+    dstreams = _streams(dense, len(downers), 4 * 256 + 3 * 256, SEED + 15)
+    script = _script(dstreams, 2, dense["cfg"].n_classes, SEED + 15)
+    n = _expect_same_runs(f"{tag}: dense fleet", _run_script(warm, script),
+                          _run_script(eager, script))
+    out["dense"] = {"warmup": stats, "decisions": n}
+    log(f"[{tag}] dense fleet warmed {stats}: 2 steady rounds, a ragged round, a 768-cycle "
+        f"push and an adapt equal to an eager dense fleet ({n} decisions)")
+
+    rec_of = {f"patient{r[0]}": r[1].cpu().numpy() for r in sparse["records"]}
+    t = 4 * 256
+    reqs = [(name, rec_of[name][1 + i % 3, 256 * i:256 * i + t])
+            for i, name in enumerate(bank)]
+    warm_e, eager_e = ServingEngine(bank), ServingEngine(bank)
+    stats = warm_e.prewarm(len(reqs), t)
+    for batch in (reqs, reqs[:5]):
+        dw, de = warm_e.serve(batch), eager_e.serve(batch)
+        expect(all(np.array_equal(a.scores, b.scores)
+                   and np.array_equal(a.predictions, b.predictions)
+                   and np.array_equal(a.frames, b.frames) for a, b in zip(dw, de)),
+               f"{tag}: prewarmed serve of {len(batch)} differs from eager serve")
+    out["engine"] = {"prewarm": stats, "aot_count": warm_e.aot_count}
+    log(f"[{tag}] engine prewarm({len(reqs)}, {t}) {stats}: serve of {len(reqs)} and of 5 "
+        "requests (graph replays) equal to eager serve")
+    return out
+
+
+def _cli(args: list, env: dict, what: str, timeout: int = CLI_TIMEOUT) -> tuple[str, float]:
+    """Run ``python -m repro_torch.launch.serve`` with ``args``; fails the
+    phase on a non-zero exit.  Returns (stdout and stderr, seconds)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                       env=env, cwd=str(ROOT), capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t0
+    out = p.stdout + p.stderr
+    expect(p.returncode == 0, f"CLI {what} exited {p.returncode}:\n{out[-3000:]}")
+    return out, secs
+
+
+def _line(out: str, prefix: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.lstrip().startswith(prefix)]
+    expect(bool(lines), f"CLI output has no {prefix!r} line:\n{out[-2000:]}")
+    return lines[-1].strip()
+
+
+def _first_decision_s(out: str) -> float:
+    return float(_line(out, "first decision:").split()[2])
+
+
+def _ckpt_leaves(root: str) -> dict:
+    """The latest checkpoint's leaves as bytes, by key."""
+    import os
+
+    steps = sorted(d for d in os.listdir(root) if d.startswith("step_")
+                   and not d.endswith(".tmp"))
+    d = os.path.join(root, steps[-1])
+    with open(os.path.join(d, "manifest.json")) as f:
+        return {leaf["key"]: np.load(os.path.join(d, leaf["file"])).tobytes()
+                for leaf in json.load(f)["leaves"]}
+
+
+def deploy_cli(tag: str, tmp: str) -> dict:
+    """``launch/serve.py`` in subprocesses: ``compile``; a warm start from
+    the artifact (0 compiled) with checkpoints; the same with a copy of
+    ``src/`` whose build directory is empty, with and without the artifact
+    (the cold start); a stale artifact (warns, builds from the sources,
+    decides the same); a SIGTERM drain and ``--resume``; the channel monitor
+    on an injected dead electrode."""
+    import os
+    import shutil
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = ["--sessions", str(CLI_SESSIONS), "--patients", str(CLI_PATIENTS)]
+    serve = ["--hdc-fleet", *base, "--rounds", str(CLI_ROUNDS), "--ckpt-every", "2"]
+    art = os.path.join(tmp, "cli_aot")
+    out, secs = _cli(["compile", "--aot-dir", art, *base], env, "compile")
+    res = {"compile_s": secs, "compile": _line(out, "AOT artifact ->")}
+    log(f"[{tag}] CLI compile: {secs:.1f} s; {res['compile'][:160]}")
+
+    out, secs = _cli([*serve, "--aot-dir", art, "--ckpt-dir", os.path.join(tmp, "c_warm")],
+                     env, "warm start")
+    warm_line = _line(out, "warmup from")
+    expect(" 0 compiled" in warm_line and "stale" not in warm_line,
+           f"CLI warm start: {warm_line}")
+    res.update(warm_s=secs, warm_first_decision_s=_first_decision_s(out), warmup=warm_line,
+               stream=_line(out, "stream:"))
+    log(f"[{tag}] CLI warm start: {warm_line}; {_line(out, 'first decision:')}; "
+        f"{res['stream']}; {secs:.1f} s in all")
+
+    # a fresh copy of the sources: its build directory (build/kernels beside
+    # src/) is empty, so only the artifact spares nvcc
+    fresh = os.path.join(tmp, "fresh")
+    for with_art in (True, False):
+        shutil.rmtree(fresh, ignore_errors=True)
+        shutil.copytree(ROOT / "src", os.path.join(fresh, "src"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        fenv = dict(env, PYTHONPATH=os.path.join(fresh, "src"))
+        args = [*serve, "--ckpt-dir", os.path.join(tmp, f"c_fresh{int(with_art)}")]
+        if with_art:
+            args += ["--aot-dir", art]
+        out, secs = _cli(args, fenv, "fresh start")
+        first = _line(out, "first decision:")
+        builds = int(first.split("kernel library: ")[1].split()[0])
+        expect(builds == (0 if with_art else 1),
+               f"CLI fresh start ({'with' if with_art else 'without'} the artifact): {first}")
+        key = "fresh_artifact" if with_art else "fresh_build"
+        res[key] = {"first_decision_s": _first_decision_s(out), "total_s": secs,
+                    "nvcc_builds": builds}
+        log(f"[{tag}] CLI cold start {'from the artifact' if with_art else 'building with nvcc'}"
+            f" (empty build directory): {first}; {secs:.1f} s in all")
+    shutil.rmtree(fresh, ignore_errors=True)
+
+    stale = os.path.join(tmp, "cli_aot_stale")
+    shutil.copytree(art, stale)
+    with open(os.path.join(stale, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest["key"]["kernels"] = "0" * 16
+    with open(os.path.join(stale, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    out, secs = _cli([*serve, "--aot-dir", stale, "--ckpt-dir", os.path.join(tmp, "c_stale")],
+                     env, "stale artifact")
+    expect("is stale" in out and "[stale artifact" in _line(out, "warmup from"),
+           f"CLI stale artifact: no warning:\n{out[-2000:]}")
+    same = _ckpt_leaves(os.path.join(tmp, "c_stale")) == _ckpt_leaves(os.path.join(tmp, "c_warm"))
+    expect(same, "CLI: the stale-artifact run decided otherwise than the warm start")
+    for k in ("c_fresh0", "c_fresh1"):
+        expect(_ckpt_leaves(os.path.join(tmp, k)) == _ckpt_leaves(os.path.join(tmp, "c_warm")),
+               f"CLI: the fresh run {k} decided otherwise than the warm start")
+    res["stale"] = _line(out, "warmup from")
+    log(f"[{tag}] CLI stale artifact: warned ({res['stale']}); final fleet state equal to "
+        "the warm start's, and the fresh runs' too")
+
+    ck = os.path.join(tmp, "c_term")
+    p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", "--hdc-fleet",
+                          *base, "--rounds", "1000000", "--aot-dir", art, "--ckpt-dir", ck,
+                          "--ckpt-every", "2"], env=env, cwd=str(ROOT),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + CLI_TIMEOUT
+        while time.time() < deadline and p.poll() is None:
+            if os.path.isdir(ck) and any(d.startswith("step_") and not d.endswith(".tmp")
+                                         for d in os.listdir(ck)):
+                break
+            time.sleep(0.2)
+        expect(p.poll() is None, "CLI: the SIGTERM run ended before its first checkpoint")
+        t0 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        out, _ = p.communicate(timeout=CLI_TIMEOUT)
+        drain_s = time.perf_counter() - t0
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    expect(p.returncode == 0 and "caught SIGTERM" in out,
+           f"CLI SIGTERM: exit {p.returncode}:\n{out[-2000:]}")
+    caught = _line(out, "caught SIGTERM")
+    out, _ = _cli(["--hdc-fleet", *base, "--rounds", "2", "--aot-dir", art, "--ckpt-dir", ck,
+                   "--resume"], env, "resume")
+    resumed = _line(out, "resumed fleet from")
+    res.update(sigterm=caught, drain_s=drain_s, resumed=resumed)
+    log(f"[{tag}] CLI SIGTERM: exit 0, '{caught}' ({drain_s:.2f} s to drain); then "
+        f"'{resumed}'")
+
+    out, _ = _cli(["--hdc-fleet", "--sessions", str(MONITOR_CLI_SESSIONS), "--patients", "4",
+                   "--rounds", "4", "--channel-health", "--inject-fault", "3:dead"],
+                  env, "channel health")
+    health = _line(out, "channel health:")
+    expect(health.startswith(f"channel health: {MONITOR_CLI_SESSIONS} channel(s)"),
+           f"CLI channel health: {health}")
+    res["channel_health"] = health
+    log(f"[{tag}] CLI --channel-health --inject-fault 3:dead: {health}")
+    return res
+
+
+def deploy_hwmodel(tag: str, records) -> dict:
+    """The energy/area model for the four variants on one patient's stream
+    of ``HW_WINDOWS`` windows, on the card and on the CPU (equal), and the
+    calibrated ratios beside the paper's."""
+    from repro_torch.core import hwmodel, im
+    from repro_torch.core.pipeline import HDCConfig
+
+    cfg = HDCConfig(spatial_threshold=1)
+    codes = records[0][1][1, :HW_WINDOWS * cfg.window].cpu().numpy()
+
+    def reports(device) -> dict:
+        sparse = im.make_im(torch.Generator().manual_seed(42), channels=cfg.channels,
+                            codes=cfg.codes, dim=cfg.dim, segments=cfg.segments,
+                            device=device)
+        dense = im.make_dense_im(torch.Generator().manual_seed(7), channels=cfg.channels,
+                                 codes=cfg.codes, dim=cfg.dim, device=device)
+        es, asc = hwmodel.calibration_factors(sparse, codes, cfg)
+        return {v: hwmodel.report(v, dense if v == "dense" else sparse, codes, cfg,
+                                  e_scale=es, a_scale=asc) for v in hwmodel.VARIANTS}
+
+    t0 = time.perf_counter()
+    card = reports("cuda")
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu = reports("cpu")
+    expect(card == cpu, f"{tag}: the hardware model differs between the card and the CPU")
+    e = {v: card[v]["energy_total_nj"] for v in card}
+    a = {v: card[v]["area_total_mm2"] for v in card}
+    ratios = {"energy_vs_naive": e["sparse_naive"] / e["sparse_opt"],
+              "area_vs_naive": a["sparse_naive"] / a["sparse_opt"],
+              "energy_vs_dense": e["dense"] / e["sparse_opt"],
+              "area_vs_dense": a["dense"] / a["sparse_opt"]}
+    log(f"[{tag}] hwmodel, 4 variants on {HW_WINDOWS} windows of patient "
+        f"{records[0][0]}: card == CPU ({card_ms:.1f} ms on the card); model ratios "
+        + ", ".join(f"{k} {v:.2f}x (paper {PAPER_RATIOS[k]:.2f}x)" for k, v in ratios.items())
+        + "; energy nJ " + ", ".join(f"{v} {x:.3f}" for v, x in e.items())
+        + "; area mm2 " + ", ".join(f"{v} {x:.4f}" for v, x in a.items()))
+    return {"ratios": ratios, "energy_nj": e, "area_mm2": a}
+
+
+def deploy_phase(tag: str, sparse: dict, dense: dict, fit_bank: dict, records) -> dict:
+    """Phase 11: deploy and tooling on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"fixed": deploy_fixed(tag, sparse, tmp)}
+        out["elastic"] = deploy_elastic(tag, fit_bank, records)
+        out.update(deploy_variants(tag, sparse, dense))
+        out["hwmodel"] = deploy_hwmodel(tag, records)
+        out["cli"] = deploy_cli(tag, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2151,6 +2775,12 @@ def main() -> int:
     rel = reliability_phase("reliability", fit_bank, dense["bank"], records)
     launches.stop("reliability")
 
+    # phase 11: deploy artifacts, CUDA-graph warm-up, the guards, the CLI and
+    # the hardware model
+    launches.start()
+    deploy = deploy_phase("deploy", sparse, dense, fit_bank, records)
+    launches.stop("deploy")
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kc.rows[name]
@@ -2180,6 +2810,17 @@ def main() -> int:
     log("[reliability] " + json.dumps(
         {k: v if k in ("sweep", "monitor", "phase_s") else
          {kk: vv for kk, vv in v.items() if kk != "round_ms"} for k, v in rel.items()}))
+    log("[deploy] " + json.dumps(
+        {"fixed": {k: deploy["fixed"][k] for k in (
+            "warmup", "warmup_ms", "capture_ms", "graph_median_ms", "eager_median_ms",
+            "profiled_graph", "profiled_eager")},
+         "elastic": {k: deploy["elastic"][k] for k in (
+             "spill_captures", "graph_median_ms", "eager_median_ms", "profiled_graph",
+             "profiled_eager")},
+         "cli": {k: deploy["cli"][k] for k in (
+             "compile_s", "warm_first_decision_s", "fresh_artifact", "fresh_build",
+             "drain_s")},
+         "hwmodel": deploy["hwmodel"]["ratios"], "phase_s": deploy["phase_s"]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,8 +99,13 @@ def _link_or_copy(src: str, dst: str) -> None:
 
 
 def save(root: str, step: int, tree: Any, meta: dict | None = None,
-         link_from: dict[str, str] | None = None) -> str:
+         link_from: dict[str, str] | None = None,
+         aot: dict | None = None) -> str:
     """Synchronous atomic save; returns the final directory.
+
+    ``aot`` (optional): ``{"path": <artifact dir>, "key": runtime/aot.py's
+    artifact_key()}``, recorded as the manifest's ``aot`` entry: the deploy
+    artifact a restarted worker warms from (``StreamingFleet.from_artifact``).
 
     ``link_from`` (optional): ``{leaf key: existing .npy path}`` for leaves the caller
     knows are unchanged since a previous step; they are hard-linked (copied
@@ -112,6 +117,8 @@ def save(root: str, step: int, tree: Any, meta: dict | None = None,
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "meta": meta or {}}
+    if aot is not None:
+        manifest["aot"] = aot
     link_from = link_from or {}
     for i, (key, leaf) in enumerate(_flatten(tree)):
         fname = f"arr_{i:05d}.npy"

@@ -109,7 +109,10 @@ def _gated_delta(labels: torch.Tensor, scores: torch.Tensor, margin,
     masked = torch.where(one_true == 1, float("-inf"), s)
     rival = torch.argmax(masked, dim=-1)
     s_rival = masked.max(dim=-1).values
-    gate = (pred != lab) | (s_true - s_rival < float(np.float32(margin)))
+    # a tensor margin (a captured adapt's static operand) holds the float32
+    # value the host rounds a Python margin to
+    thr = margin if isinstance(margin, torch.Tensor) else float(np.float32(margin))
+    gate = (pred != lab) | (s_true - s_rival < thr)
     gate = gate & (labels >= 0)
     if valid is not None:
         gate = gate & valid

@@ -6,6 +6,10 @@ one shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a name keyed by the sources'
 digest, so a changed source is rebuilt and an unchanged one is reused.
+``lib(path=...)`` loads a library shipped in a deploy artifact
+(``runtime/aot.py``) instead, with no ``nvcc``.  ``BUILD_LOG`` and
+``LOAD_LOG`` list every build and every load of this process, for warm-up
+reports and ``analysis/guards.py``.
 
 Nothing here runs at import time: the CPU tests import every module and
 have no ``nvcc``.
@@ -45,15 +49,20 @@ SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+# the libraries this process compiled with nvcc, and the ones it loaded
+BUILD_LOG: list[str] = []
+LOAD_LOG: list[str] = []
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+def digest(csrc: Path = CSRC) -> str:
+    """16 hex digits of sha256 over every file of ``csrc`` (name and bytes)
+    and the nvcc flags: the name of the library they build."""
     h = hashlib.sha256()
-    for p in sorted(CSRC.iterdir()):
+    for p in sorted(Path(csrc).iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -76,7 +85,7 @@ def build() -> Path:
     """Compile the kernels (if the digest-named library is missing) and
     return the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libhdc_kernels_{_digest()}.so"
+    lib_path = BUILD_DIR / f"libhdc_kernels_{digest()}.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()
@@ -103,14 +112,23 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib_path)
+    BUILD_LOG.append(str(lib_path))
     return lib_path
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib(path: str | Path | None = None) -> ctypes.CDLL:
+    """The loaded kernel library: on first call loaded from ``path`` (a
+    deploy artifact's copy, no ``nvcc``) or else built from ``csrc/``.
+    Once a library is loaded, later calls return it whatever ``path`` says
+    (an artifact is only used when its key names these sources).  A library
+    that does not load raises."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+        where = Path(path) if path is not None else build()
+        try:
+            handle = ctypes.CDLL(str(where))
+        except OSError as ex:
+            raise RuntimeError(f"kernel library {where} does not load: {ex}") from ex
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
@@ -118,6 +136,7 @@ def lib() -> ctypes.CDLL:
         handle.hdc_error_string.argtypes = [ctypes.c_int]
         handle.hdc_error_string.restype = ctypes.c_char_p
         _lib = handle
+        LOAD_LOG.append(str(where))
     return _lib
 
 

@@ -20,10 +20,18 @@ cycles, and a session runs as a fleet of one, split into pieces of at most
 ``SESSION_PIECE`` cycles, so that its frame slots fit in the kernel's shared
 memory; frames are scored by the AM kernel (session) or by owner-gathered
 scoring (engine).
+
+``ServingEngine.prewarm`` captures the dispatch of every power-of-two
+batch bucket up to a batch size, at one request length, as a CUDA graph
+(``runtime/graphs.py``; the reference's AOT executables); ``serve``
+replays the graph of a prewarmed (padded batch, length) and runs eagerly
+otherwise.  ``serve`` and ``SeizureSession.push`` return host values, so
+their uploads need not be asynchronous.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 from dataclasses import dataclass
@@ -36,6 +44,8 @@ from repro_torch.core import am, hv, online
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline, _am_mode
 from repro_torch.kernels.hdc_am.ops import am_search
 from repro_torch.kernels.hdc_fleet import ops as fleet_ops
+from repro_torch.runtime import aot as aot_mod
+from repro_torch.runtime import graphs
 from repro_torch.serve import dispatch
 
 # the longest piece of a session's chunk one fleet-kernel launch counts: the
@@ -64,12 +74,13 @@ def _frame_sessions(tables: torch.Tensor, param_owner: torch.Tensor,
     s = b * f
     dev = codes.device
     seg = fleet_ops.fleet_counts_fused(
-        tables, param_owner.repeat_interleave(f),
+        tables, param_owner.repeat_interleave(f, output_size=s),
         codes.reshape(s, cfg.window, c),
         torch.zeros((s,), dtype=torch.int32, device=dev),
         torch.full((s,), cfg.window, dtype=torch.int32, device=dev), cfg)
-    frames = _pack_frames(seg[:, 0], thresholds.repeat_interleave(f)[:, None],
-                          cfg)
+    # output_size: the repeats read no device value back
+    frames = _pack_frames(seg[:, 0],
+                          thresholds.repeat_interleave(f, output_size=s)[:, None], cfg)
     return frames.reshape(b, f, cfg.words)
 
 
@@ -135,10 +146,82 @@ class ServingEngine:
         self._thresholds = torch.as_tensor(
             np.asarray([p.cfg.temporal_threshold for p in pipes], np.int32),
             device=dev)
+        # prewarm: (b_pad, t) -> the captured dispatch and its static inputs
+        self._graphs: dict[tuple[int, int], tuple] = {}
+        self._pool = None
+        self._shapes_seen: set[tuple[int, int]] = set()
 
     @property
     def patient_ids(self) -> list:
         return list(self._pids)
+
+    @property
+    def aot_count(self) -> int:
+        """Dispatches captured by ``prewarm``."""
+        return len(self._graphs)
+
+    def _aot_sig(self) -> str:
+        h = hashlib.sha256()
+        h.update(repr(self._cfg).encode())
+        h.update(self._device.type.encode())
+        h.update(str(tuple(self._tables.shape)).encode())
+        h.update(str(tuple(self._bank.shape)).encode())
+        return h.hexdigest()[:10]
+
+    def _aot_name(self, b_pad: int, t: int) -> str:
+        return f"engine.{self._cfg.variant}.b{b_pad}.t{t}.{self._aot_sig()}"
+
+    @staticmethod
+    def _pow2_buckets(max_batch: int) -> list[int]:
+        top = 1 << (max(1, int(max_batch)) - 1).bit_length()
+        return [1 << i for i in range(top.bit_length())]
+
+    def aot_entries(self, batch_sizes: Sequence[int], t: int
+                    ) -> list[aot_mod.AOTEntry]:
+        """Entries for the dispatch at the power-of-two batch buckets that
+        cover ``batch_sizes``, at request length ``t``."""
+        buckets = sorted({1 << (max(1, int(b)) - 1).bit_length()
+                          for b in batch_sizes})
+        return [aot_mod.AOTEntry(self._aot_name(b, t), "engine", b, t)
+                for b in buckets]
+
+    def prewarm(self, max_batch: int, t: int, *,
+                aot: aot_mod.AOTArtifact | None = None) -> dict[str, int]:
+        """Capture the dispatch of every power-of-two batch bucket up to
+        ``max_batch`` at request length ``t`` as a CUDA graph (the kernel
+        library from ``aot`` when given); each capture first runs the
+        dispatch eagerly.  An entry named in ``aot`` counts as ``loaded``,
+        any other capture as ``compiled``; on the CPU every bucket is
+        ``skipped``.  Returns ``{"loaded", "compiled", "skipped"}``."""
+        stats = {"loaded": 0, "compiled": 0, "skipped": 0}
+        buckets = self._pow2_buckets(max_batch)
+        if self._device.type != "cuda":
+            stats["skipped"] = len(buckets)
+            return stats
+        aot_mod.load_library(aot)
+        cfg, dev = self._cfg, self._device
+        t_used = t // cfg.window * cfg.window
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        for b_pad in buckets:
+            if (b_pad, t) in self._graphs:
+                stats["skipped"] += 1
+                continue
+            own = torch.zeros((b_pad,), dtype=torch.int64, device=dev)
+            codes = torch.zeros((b_pad, t_used, cfg.channels), dtype=torch.uint8,
+                                device=dev)
+
+            def body(own=own, codes=codes):
+                return _serve_dispatch(self._tables, self._bank,
+                                       self._param_rows[own], own,
+                                       self._thresholds[own], codes, cfg)
+
+            name = self._aot_name(b_pad, t)
+            g = graphs.capture(name, body, warm=body, pool=self._pool,
+                               counted=(fleet_ops.fleet_counts_kernel,))
+            self._graphs[(b_pad, t)] = (g, own, codes)
+            stats["loaded" if aot is not None and name in aot else "compiled"] += 1
+        return stats
 
     @property
     def device(self) -> torch.device:
@@ -178,11 +261,21 @@ class ServingEngine:
         batch = np.zeros((b_pad, t_used, cfg.channels), np.uint8)
         for i, c in enumerate(codes):
             batch[i] = np.asarray(c)[:t_used]
-        own = torch.from_numpy(owner).to(self._device)
-        frames, scores, preds = _serve_dispatch(
-            self._tables, self._bank, self._param_rows[own], own,
-            self._thresholds[own], torch.from_numpy(batch).to(self._device),
-            cfg)
+        warm = self._graphs.get((b_pad, t))
+        if warm is not None:
+            graph, own, codes_t = warm
+            own.copy_(torch.from_numpy(owner))
+            codes_t.copy_(torch.from_numpy(batch))
+            frames, scores, preds = graph.replay()
+        else:
+            if (b_pad, t) not in self._shapes_seen:
+                self._shapes_seen.add((b_pad, t))
+                graphs.EAGER_LOG.append(self._aot_name(b_pad, t))
+            own = torch.from_numpy(owner).to(self._device)
+            frames, scores, preds = _serve_dispatch(
+                self._tables, self._bank, self._param_rows[own], own,
+                self._thresholds[own], torch.from_numpy(batch).to(self._device),
+                cfg)
         frames_np = hv.to_u32(frames)
         scores_np, preds_np = scores.cpu().numpy(), preds.cpu().numpy()
         return [Decision(request_id=i, patient_id=pid, scores=scores_np[i],

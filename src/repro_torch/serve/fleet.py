@@ -29,13 +29,15 @@ device.
 
 Chunks may have any length per session (0 included).  Lengths are padded
 to the smallest bucket that fits, and a chunk longer than the largest
-bucket splits over several steps.  Ingest goes through a pinned host
-staging buffer per (tile, slot, bucket), copied with ``non_blocking=True``
-and double-buffered: a buffer is rewritten only after the step that read
-it has finished (a CUDA event recorded after that step).  The host keeps
-O(S) mirrors of ``filled``/``frame_index`` to route results without a
-sync; pushes never wait for the device, ``collect_decisions`` does (and so
-do ``adapt``, ``save`` and ``restore``, which return host values).
+bucket splits over several steps.  Ingest goes through pinned host staging
+buffers per (tile, slot, bucket), the codes and the lengths, copied with
+``non_blocking=True`` and double-buffered: a buffer is rewritten only after
+the step that read it has finished (a CUDA event recorded after that step).
+Other host-to-device writes (registers, slot rows, masks) go through
+pinned copies too.  The host keeps O(S) mirrors of ``filled``/
+``frame_index`` to route results without a sync; pushes never wait for the
+device, ``collect_decisions`` does (and so do ``adapt``, ``save`` and
+``restore``, which return host values).
 
 ``channel_masking=True`` carries a per-session (S, channels) electrode
 mask (1 = live) into the fleet kernel's mask operand: masked channels
@@ -58,8 +60,26 @@ step's fault-free call; BER 0 is bit-exact with it.
 torch, ``core/online.py``), and ``save``/``restore`` checkpoint the whole
 state mid-stream (``ckpt/checkpoint.py``).
 
-Decisions are bit-exact with the reference fleet.  Not ported: mesh
-placement, tiles spread over several cards, AOT warm-up and stage probes.
+Warm-up (``warmup``; the reference's AOT executables) captures each tile's
+step at each bucket, and its adapt, as a CUDA graph (``runtime/graphs.py``)
+over static tensors: the staged codes and lengths a (tile, bucket), the
+tile's state leaves and operand registers, for a faulted fleet its draw.
+A tile's state then lives in those static tensors and replays update it in
+place; whatever replaces a tile's state or registers (``adapt`` run
+eagerly, ``restore``, ``reset``, slot writes) is copied in before the next
+replay.  Each round's frames and scores are copied out of the graph's
+outputs into tensors of their own, so rounds not yet collected survive
+later replays (a fixed ring of output buffers would be overwritten by a
+push of more rounds than it holds).  The pinned
+copy of the staged inputs stays outside the graph, ordered before the
+replay on the stream; a faulted round's draw is made eagerly and copied
+into the static draw.  A replay that fails raises: a warmed fleet never
+falls back to eager steps behind the caller's back.  On the CPU warm-up
+captures nothing.  ``save_aot``/``from_artifact`` ship and load the kernel
+library (``runtime/aot.py``); graphs are captured by each worker.
+
+Decisions are bit-exact with the reference fleet, warmed or not.  Not
+ported: mesh placement, tiles spread over several cards, and stage probes.
 """
 
 from __future__ import annotations
@@ -67,7 +87,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from dataclasses import dataclass, fields, replace
+import warnings
+from dataclasses import dataclass, field, fields, replace
 from typing import Hashable, Mapping, Sequence
 
 import numpy as np
@@ -81,6 +102,8 @@ from repro_torch.kernels.hdc_fleet import ops as fleet_ops
 from repro_torch.reliability import ecc as rel_ecc
 from repro_torch.reliability import faults as rel_faults
 from repro_torch.reliability.faults import FaultConfig, FaultPlan, StepDraw
+from repro_torch.runtime import aot as aot_mod
+from repro_torch.runtime import graphs
 from repro_torch.serve import dispatch
 from repro_torch.serve.engine import FrameDecision, _pack_frames
 
@@ -151,6 +174,44 @@ def _host_state(state: FleetState) -> FleetState:
         f.name: (hv.to_u32(getattr(state, f.name)) if f.name in _PACKED_LEAVES
                  else getattr(state, f.name).cpu().numpy())
         for f in fields(FleetState)})
+
+
+def _copy_state(dst: FleetState, src: FleetState) -> None:
+    """Write ``src``'s leaves into ``dst``'s tensors in place."""
+    for f in fields(FleetState):
+        d, s_ = getattr(dst, f.name), getattr(src, f.name)
+        if d is not s_:
+            d.copy_(s_)
+
+
+def _clone_state(state: FleetState) -> FleetState:
+    return FleetState(**{f.name: getattr(state, f.name).clone()
+                         for f in fields(FleetState)})
+
+
+# the per-tile operand registers a captured step or adapt reads
+_REGISTERS = ("_thresholds_t", "_param_owner_t", "_density_t", "_cmask_t")
+
+
+@dataclass
+class _TileStatic:
+    """The static tensors a tile's graphs read and write: its state, its
+    registers, the staged lengths, the staged codes a bucket, the fault
+    draw, and the adapt step's labels and margin."""
+
+    state: FleetState
+    regs: dict
+    lens: torch.Tensor
+    labels: torch.Tensor
+    margin: torch.Tensor
+    chunks: dict = field(default_factory=dict)
+    draw: StepDraw | None = None
+    draw_src: StepDraw | None = None   # the draw last copied into ``draw``
+
+
+def _draw_leaves(draw: StepDraw) -> list[torch.Tensor]:
+    return [t for f in fields(StepDraw) for wd in [getattr(draw, f.name)]
+            if wd is not None for t in (wd.sel, wd.val) if t is not None]
 
 
 @dataclass(frozen=True)
@@ -282,6 +343,32 @@ def _mask_from_meta(cm: dict | None, shape: tuple[int, int]) -> np.ndarray:
     return np.frombuffer(bytes.fromhex(cm["hex"]), np.uint8).reshape(got).copy()
 
 
+def _artifact_for(root: str, step: int, aot_dir: str | None,
+                  device) -> aot_mod.AOTArtifact | None:
+    """The deploy artifact a checkpoint step records (or ``aot_dir``),
+    loaded and key-checked; None, with a warning, when it is stale."""
+    with open(os.path.join(root, f"step_{step:08d}", "manifest.json")) as f:
+        manifest = json.load(f)
+    path = aot_dir
+    if path is None:
+        entry = manifest.get("aot")
+        if entry is not None:
+            saved = entry.get("key")
+            bad = (aot_mod.stale_fields(saved, aot_mod.artifact_key(device=device))
+                   if saved is not None else {})
+            if bad:
+                warnings.warn(
+                    "checkpoint AOT entry is stale ("
+                    + ", ".join(f"{k}: saved {s!r} != current {c!r}"
+                                for k, (s, c) in sorted(bad.items()))
+                    + "); warming up from the usual build", stacklevel=3)
+            else:
+                path = entry.get("path")
+                if path is not None and not os.path.isabs(path):
+                    path = os.path.join(root, path)
+    return None if path is None else aot_mod.load_artifact(path, device=device)
+
+
 class StreamingFleet:
     """S concurrent streaming seizure sessions, one step a capacity tile.
 
@@ -388,13 +475,28 @@ class StreamingFleet:
         # per tile: state changed since the last checkpoint (set by steps
         # with live cycles, adapt, slot writes and restore)
         self._dirty_t = [True] * len(self._tile_slices)
+        # warm-up: per tile index its static tensors, per (tile, bucket) the
+        # captured step and per tile the captured adapt, one memory pool;
+        # the step shapes run eagerly so far
+        self._static: dict[int, _TileStatic] = {}
+        self._graphs: dict[tuple[int, int], graphs.StepGraph] = {}
+        self._adapt_graphs: dict[int, graphs.StepGraph] = {}
+        self._pool = None
+        self._shapes_seen: set[tuple] = set()
 
     # -- state ----------------------------------------------------------------
 
     def _put(self, x: np.ndarray, dtype: torch.dtype | None = None
              ) -> torch.Tensor:
-        """A device copy of a host array (never a view of it)."""
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self._device)
+        """A device copy of a host array (never a view of it).  On the card
+        it goes through pinned memory and is queued without waiting (the
+        pinned block is not reused before the copy has run)."""
+        t = torch.from_numpy(np.array(x))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self._device.type != "cuda":
+            return t
+        return t.pin_memory().to(self._device, non_blocking=True)
 
     def _put_tiles(self, x: np.ndarray, dtype: torch.dtype | None = None
                    ) -> list[torch.Tensor]:
@@ -461,11 +563,15 @@ class StreamingFleet:
     def state(self) -> FleetState:
         """The whole fleet's state, tiles concatenated: its leading dim is
         the provisioned capacity, and rows past ``n_sessions`` are phantom
-        slots."""
-        if len(self._state_t) == 1:
-            return self._state_t[0]
+        slots.  A warmed tile's static state is copied, so the value does
+        not move with later replays."""
+        tiles = [_clone_state(st) if k in self._static and
+                 st is self._static[k].state else st
+                 for k, st in enumerate(self._state_t)]
+        if len(tiles) == 1:
+            return tiles[0]
         return FleetState(**{
-            f.name: torch.cat([getattr(st, f.name) for st in self._state_t])
+            f.name: torch.cat([getattr(st, f.name) for st in tiles])
             for f in fields(FleetState)})
 
     @property
@@ -579,19 +685,27 @@ class StreamingFleet:
                 return b
         raise AssertionError("length exceeds max bucket")  # pragma: no cover
 
-    def _stage_buf(self, k: int, slot: int, t_pad: int) -> torch.Tensor:
-        """Tile ``k``'s (slot, bucket) staging buffer, safe to rewrite:
-        waits for the last step that read it.  Pinned host memory on the
-        card."""
+    def _stage_buf(self, k: int, slot: int, t_pad: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Tile ``k``'s (slot, bucket) staging buffers, the codes (tile_s,
+        t_pad, channels) uint8 and the lengths (tile_s,) int32, safe to
+        rewrite: waits for the last step that read them.  Pinned host
+        memory on the card; marked as host buffers (``_host_staging``),
+        whose ``numpy()`` views are no device read."""
         key = (slot, t_pad)
         done = self._stage_done_t[k].pop(key, None)
         if done is not None:
             done.synchronize()
         if key not in self._stage_t[k]:
             sl = self._tile_slices[k]
-            self._stage_t[k][key] = torch.zeros(
-                (sl.stop - sl.start, t_pad, self._cfg.channels),
-                dtype=torch.uint8, pin_memory=self._device.type == "cuda")
+            pin = self._device.type == "cuda"
+            bufs = (torch.zeros((sl.stop - sl.start, t_pad, self._cfg.channels),
+                                dtype=torch.uint8, pin_memory=pin),
+                    torch.zeros((sl.stop - sl.start,), dtype=torch.int32,
+                                pin_memory=pin))
+            for b in bufs:
+                b._host_staging = True
+            self._stage_t[k][key] = bufs
         return self._stage_t[k][key]
 
     def _validate(self, chunks: Sequence) -> tuple[list[np.ndarray], np.ndarray]:
@@ -651,23 +765,18 @@ class StreamingFleet:
             self._stage_phase += 1
             outs = []
             for k, sl in enumerate(self._tile_slices):
-                stage = self._stage_buf(k, slot, t_pad)
+                stage, lens_buf = self._stage_buf(k, slot, t_pad)
                 hi = min(sl.stop, self._n)  # phantom rows: stale == masked
                 if hi > sl.start:
                     stage.numpy()[:hi - sl.start, :width] = big[sl.start:hi,
                                                                 pos:pos + width]
-                chunk = stage.to(dev, non_blocking=True)
-                lens = torch.as_tensor(round_len32[sl], device=dev)
-                args = (self._state_t[k], self._tables, self._param_owner_t[k],
-                        self._thresholds_t[k], chunk, lens,
-                        self._cmask_t[k] if self._masked else None)
-                if self._plan is None:
-                    self._state_t[k], fo = _fleet_step(*args, cfg=self._cfg)
+                lens_buf.numpy()[:] = round_len32[sl]
+                graph = self._graphs.get((k, t_pad))
+                if graph is not None:
+                    fo = self._replay_step(k, t_pad, graph, stage, lens_buf, phase)
                 else:
-                    self._state_t[k], fo, ecc_c = _fleet_step(
-                        *args, cfg=self._cfg, faults=self._plan,
-                        draw=self._step_draw(k, phase))
-                    self._ecc_t[k] += ecc_c
+                    fo = self._eager_step(k, t_pad, stage.to(dev, non_blocking=True),
+                                          lens_buf.to(dev, non_blocking=True), phase)
                 if cuda:  # the staging slot is free once this step has run
                     done = torch.cuda.Event()
                     done.record()
@@ -682,6 +791,52 @@ class StreamingFleet:
             self._fidx_h += n_emit
             pos += max_bucket
         return rounds
+
+    def _eager_step(self, k: int, t_pad: int, chunk: torch.Tensor,
+                    lens: torch.Tensor, phase: int) -> FleetOut:
+        """Tile ``k``'s step as eager launches (a shape first run here is
+        logged in ``graphs.EAGER_LOG``)."""
+        sl = self._tile_slices[k]
+        self._note_eager("step", sl.stop - sl.start, t_pad)
+        args = (self._state_t[k], self._tables, self._param_owner_t[k],
+                self._thresholds_t[k], chunk, lens,
+                self._cmask_t[k] if self._masked else None)
+        if self._plan is None:
+            self._state_t[k], fo = _fleet_step(*args, cfg=self._cfg)
+        else:
+            self._state_t[k], fo, ecc_c = _fleet_step(
+                *args, cfg=self._cfg, faults=self._plan,
+                draw=self._step_draw(k, phase))
+            self._ecc_t[k] += ecc_c
+        return fo
+
+    def _note_eager(self, *shape) -> None:
+        """Log a (kind, tile, bucket) shape the first time it runs eagerly:
+        the counterpart of a compile (``analysis/guards.no_recompiles``)."""
+        if shape not in self._shapes_seen:
+            self._shapes_seen.add(shape)
+            graphs.EAGER_LOG.append(self._aot_name(*shape))
+
+    def _replay_step(self, k: int, t_pad: int, graph: graphs.StepGraph,
+                     stage: torch.Tensor, lens_buf: torch.Tensor,
+                     phase: int) -> FleetOut:
+        """Tile ``k``'s step as a replay of its captured graph: the staged
+        inputs are copied into the static ones (queued before the replay),
+        the state is updated in place, and the round's outputs are copied
+        out of the graph's."""
+        st = self._bind_static(k)
+        st.chunks[t_pad].copy_(stage, non_blocking=True)
+        st.lens.copy_(lens_buf, non_blocking=True)
+        if self._plan is not None:
+            draw = self._step_draw(k, phase)
+            if draw is not st.draw_src:  # a stuck draw is copied once
+                for dst, src in zip(_draw_leaves(st.draw), _draw_leaves(draw)):
+                    dst.copy_(src)
+                st.draw_src = draw
+        out = graph.replay()
+        if self._plan is not None:
+            self._ecc_t[k] += out[2]
+        return FleetOut(frames=out[0].clone(), scores=out[1].clone())
 
     def push_raw(self, chunks: Sequence) -> list[FleetRound]:
         """Feed one (t_i, channels) uint8 chunk per session; returns one
@@ -787,12 +942,232 @@ class StreamingFleet:
         full[:self._n] = lab
         applied = []
         for k, sl in enumerate(self._tile_slices):
-            self._state_t[k], app = _fleet_adapt(
-                self._state_t[k], torch.as_tensor(full[sl], device=self._device),
-                margin, self._density_t[k], cfg=self._cfg)
+            graph = self._adapt_graphs.get(k)
+            if graph is not None:
+                st = self._bind_static(k)
+                st.labels.copy_(self._put(full[sl]))
+                st.margin.fill_(float(np.float32(margin)))
+                app = graph.replay()[0]
+            else:
+                self._note_eager("adapt", sl.stop - sl.start)
+                self._state_t[k], app = _fleet_adapt(
+                    self._state_t[k], self._put(full[sl]), margin,
+                    self._density_t[k], cfg=self._cfg)
             self._dirty_t[k] = True
             applied.append(app.cpu().numpy())
         return np.concatenate(applied)[:self._n]
+
+    # -- warm-up: CUDA graphs and deploy artifacts ----------------------------
+
+    @property
+    def compile_count(self) -> int:
+        """Step programs prepared so far (<= buckets x tiles): the step
+        shapes run eagerly plus the steps captured by ``warmup``."""
+        return sum(sh[0] == "step" for sh in self._shapes_seen) + self.aot_count
+
+    @property
+    def aot_count(self) -> int:
+        """Steps captured as CUDA graphs by ``warmup`` (adapts aside)."""
+        return len(self._graphs)
+
+    def _aot_sig(self) -> str:
+        """Digest of what selects this fleet's step beyond its shapes: the
+        datapath config, the fault plan, channel masking, the device type
+        and the bank's geometry.  Rides in every entry name."""
+        h = hashlib.sha256()
+        h.update(repr(self._cfg).encode())
+        h.update(repr(self._plan).encode())
+        h.update(str(self._masked).encode())
+        h.update(self._device.type.encode())
+        h.update(str(tuple(self._tables.shape)).encode())
+        return h.hexdigest()[:10]
+
+    def _aot_name(self, kind: str, tile_s: int, t_pad: int | None = None) -> str:
+        base = (f"fleet.{self._cfg.variant}.{self._device.type}"
+                f"{'.faulted' if self._plan is not None else ''}"
+                f"{'.masked' if self._masked else ''}.s{tile_s}")
+        mid = f".t{t_pad}" if kind == "step" else ""
+        return f"{base}{mid}.{kind}.{self._aot_sig()}"
+
+    def aot_entries(self, buckets: Sequence[int] | None = None
+                    ) -> list[aot_mod.AOTEntry]:
+        """This fleet's warm-up set: one step a (distinct tile shape,
+        bucket) and, when the bank can adapt, one adapt a tile shape."""
+        out: list[aot_mod.AOTEntry] = []
+        seen: set[tuple] = set()
+        for sl in self._tile_slices:
+            tile_s = sl.stop - sl.start
+            for b in buckets or self._buckets:
+                if ("step", tile_s, b) not in seen:
+                    seen.add(("step", tile_s, b))
+                    out.append(aot_mod.AOTEntry(self._aot_name("step", tile_s, b),
+                                                "step", tile_s, b))
+            if self._am_counts0 is not None and ("adapt", tile_s) not in seen:
+                seen.add(("adapt", tile_s))
+                out.append(aot_mod.AOTEntry(self._aot_name("adapt", tile_s),
+                                            "adapt", tile_s))
+        return out
+
+    def save_aot(self, path: str) -> dict:
+        """Write this fleet's deploy artifact at ``path``: the built kernel
+        library and the entry names (``runtime/aot.py``); returns the
+        manifest.  Run at deploy time (``launch/serve.py compile``)."""
+        return aot_mod.save_artifact(
+            path, self.aot_entries(), key=aot_mod.artifact_key(device=self._device))
+
+    def _graph_pool(self):
+        if self._pool is None:  # one pool for all of this fleet's graphs
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _tile_static(self, k: int) -> _TileStatic:
+        """Tile ``k``'s static tensors, made (from its current state and
+        registers) at its first capture and bound to it."""
+        st = self._static.get(k)
+        if st is None:
+            sl = self._tile_slices[k]
+            s, dev = sl.stop - sl.start, self._device
+            regs = {name: getattr(self, name)[k].clone() for name in _REGISTERS
+                    if name != "_cmask_t" or self._masked}
+            st = _TileStatic(
+                state=_clone_state(self._state_t[k]), regs=regs,
+                lens=torch.zeros((s,), dtype=torch.int32, device=dev),
+                labels=torch.full((s,), -1, dtype=torch.int64, device=dev),
+                margin=torch.zeros((), dtype=torch.float32, device=dev))
+            if self._plan is not None:
+                draw = self._step_draw(k, self._stage_phase)
+                st.draw = rel_faults.StepDraw(**{
+                    f.name: None if wd is None else rel_faults.WordDraw(
+                        wd.sel.clone(), None if wd.val is None else wd.val.clone())
+                    for f in fields(StepDraw) for wd in [getattr(draw, f.name)]})
+            self._static[k] = st
+        return self._bind_static(k)
+
+    def _bind_static(self, k: int) -> _TileStatic:
+        """Make tile ``k``'s static tensors current: a state or register
+        that was replaced since (eager adapt, restore, reset, slot writes,
+        masks) is copied in, and the static tensor takes its place."""
+        st = self._static[k]
+        if self._state_t[k] is not st.state:
+            _copy_state(st.state, self._state_t[k])
+            self._state_t[k] = st.state
+        for name, reg in st.regs.items():
+            regs = getattr(self, name)
+            if regs[k] is not reg:
+                reg.copy_(regs[k])
+                regs[k] = reg
+        return st
+
+    def _capture_step(self, k: int, t_pad: int) -> graphs.StepGraph:
+        """Capture tile ``k``'s step at bucket ``t_pad``."""
+        st = self._tile_static(k)
+        sl = self._tile_slices[k]
+        s = sl.stop - sl.start
+        chunk = st.chunks.setdefault(t_pad, torch.zeros(
+            (s, t_pad, self._cfg.channels), dtype=torch.uint8, device=self._device))
+        extra = {} if self._plan is None else {"faults": self._plan, "draw": st.draw}
+
+        def run(state):
+            return _fleet_step(state, self._tables, st.regs["_param_owner_t"],
+                               st.regs["_thresholds_t"], chunk, st.lens,
+                               st.regs.get("_cmask_t"), cfg=self._cfg, **extra)
+
+        def body():
+            new_state, fo, *ecc = run(st.state)
+            _copy_state(st.state, new_state)
+            return (fo.frames, fo.scores, *ecc)
+
+        g = graphs.capture(self._aot_name("step", s, t_pad), body,
+                           warm=lambda: run(_clone_state(st.state)),
+                           pool=self._graph_pool(),
+                           counted=(fleet_ops.fleet_counts_kernel,))
+        self._graphs[(k, t_pad)] = g
+        return g
+
+    def _capture_adapt(self, k: int) -> graphs.StepGraph:
+        """Capture tile ``k``'s adapt (labels and margin as static
+        operands)."""
+        st = self._tile_static(k)
+        sl = self._tile_slices[k]
+
+        def run(state):
+            return _fleet_adapt(state, st.labels, st.margin,
+                                st.regs["_density_t"], cfg=self._cfg)
+
+        def body():
+            new_state, applied = run(st.state)
+            _copy_state(st.state, new_state)
+            return (applied,)
+
+        g = graphs.capture(self._aot_name("adapt", sl.stop - sl.start), body,
+                           warm=lambda: run(_clone_state(st.state)),
+                           pool=self._graph_pool())
+        self._adapt_graphs[k] = g
+        return g
+
+    def warmup(self, *, aot: aot_mod.AOTArtifact | None = None,
+               buckets: Sequence[int] | None = None) -> dict[str, int]:
+        """Capture every tile's step at every bucket (and its adapt) as a
+        CUDA graph before traffic arrives; later rounds replay them.
+
+        The kernel library comes from ``aot`` (a loaded deploy artifact: no
+        ``nvcc``) or else from the usual build.  A capture whose entry the
+        artifact names counts as ``loaded``, any other as ``compiled``;
+        tiles and buckets already captured are ``skipped``.  Each capture
+        first runs its step eagerly on copies of the state, then captures.
+        On the CPU nothing is captured and every entry is ``skipped``.
+        Returns ``{"loaded", "compiled", "skipped"}``."""
+        stats = {"loaded": 0, "compiled": 0, "skipped": 0}
+        if self._device.type != "cuda":
+            stats["skipped"] = len(self.aot_entries(buckets))
+            return stats
+        aot_mod.load_library(aot)
+
+        def count(name: str) -> None:
+            stats["loaded" if aot is not None and name in aot else "compiled"] += 1
+
+        for k, sl in enumerate(self._tile_slices):
+            for b in buckets or self._buckets:
+                if (k, b) in self._graphs:
+                    stats["skipped"] += 1
+                    continue
+                count(self._capture_step(k, b).name)
+            if self._am_counts0 is not None:
+                if k in self._adapt_graphs:
+                    stats["skipped"] += 1
+                else:
+                    count(self._capture_adapt(k).name)
+        return stats
+
+    @property
+    def capture_ms(self) -> dict[str, float]:
+        """Host ms of each capture, by graph (tile, bucket or adapt)."""
+        out = {f"tile{k}.t{b}": g.capture_ms for (k, b), g in self._graphs.items()}
+        out.update({f"tile{k}.adapt": g.capture_ms
+                    for k, g in self._adapt_graphs.items()})
+        return out
+
+    @classmethod
+    def from_artifact(cls, pipelines: Mapping[Hashable, HDCPipeline],
+                      owners: Sequence[Hashable], root: str, *,
+                      step: int | None = None, aot_dir: str | None = None,
+                      warm: bool = True, **fleet_kwargs) -> "StreamingFleet":
+        """Worker restart: build a fleet, warm it from the deploy artifact
+        its checkpoint records (``save(..., aot_dir=...)``; ``aot_dir``
+        overrides the recorded path) and restore the checkpointed state.
+        A stale or missing artifact (other torch, CUDA, card or kernel
+        sources) warns and warms from the usual build: decisions are the
+        same either way, only the start-up time differs."""
+        fleet = cls(pipelines, owners, **fleet_kwargs)
+        if step is None:
+            step = ckpt.latest_step(root)
+            if step is None:
+                raise FileNotFoundError(f"no fleet checkpoint under {root!r}")
+        art = _artifact_for(root, step, aot_dir, fleet.device)
+        if warm:
+            fleet.warmup(aot=art)
+        fleet.restore(root, step)
+        return fleet
 
     # -- durability -----------------------------------------------------------
 
@@ -828,12 +1203,16 @@ class StreamingFleet:
             operands += [self._am_counts0, self._am_n0]
         return self._digest(operands)
 
-    def save(self, root: str, step: int | None = None) -> str:
+    def save(self, root: str, step: int | None = None,
+             aot_dir: str | None = None) -> str:
         """Checkpoint the whole fleet state (streaming accumulators and
         online AM banks, ``state``'s padded rows) under ``root`` with the
         checkpoint module's atomic rename; ``step`` defaults to one past
         the latest.  Packed words are saved as uint32; channel masks ride
-        the manifest meta.  Returns the checkpoint directory."""
+        the manifest meta.  ``aot_dir`` also writes the deploy artifact
+        there (``save_aot``) and records its path and key as the
+        manifest's ``aot`` entry (a relative path resolves against
+        ``root``).  Returns the checkpoint directory."""
         if step is None:
             latest = ckpt.latest_step(root)
             step = 0 if latest is None else latest + 1
@@ -842,7 +1221,14 @@ class StreamingFleet:
             # outside the _meta() comparison: a fleet without masking
             # restores the checkpoint
             meta["channel_mask"] = _mask_meta(self._cmask_h[:self._n])
-        return ckpt.save(root, step, _host_state(self.state), meta=meta)
+        return ckpt.save(root, step, _host_state(self.state), meta=meta,
+                         aot=self._save_aot_entry(aot_dir))
+
+    def _save_aot_entry(self, aot_dir: str | None) -> dict | None:
+        if aot_dir is None:
+            return None
+        self.save_aot(aot_dir)
+        return {"path": aot_dir, "key": aot_mod.artifact_key(device=self._device)}
 
     def restore(self, root: str, step: int | None = None) -> int:
         """Restore a ``save``d state into this fleet (the same bank and

@@ -37,8 +37,17 @@ Crash recovery
     ``replay(events_since(cursor))`` reproduces the uninterrupted fleet's
     decisions bit-exactly.
 
-Every tile lives on the bank's one device.  Not ported: ``warmup`` and the
-AOT restart path (nothing on this path compiles).
+Warm-up
+    ``warmup`` captures the live tiles' steps and adapts as CUDA graphs
+    (``StreamingFleet.warmup``); a tile that a spill adds to a warmed fleet
+    is captured before its first step (``_warm_tile``), and a tile index
+    that compaction dropped keeps its graphs for the next spill.
+    ``from_checkpoint(..., aot_dir=, warm=)`` warms from the checkpoint's
+    deploy artifact, then restores.  The reference also warms slot-write
+    and slot-read executables; here those are indexed row writes and reads
+    queued on the stream, with nothing to capture.
+
+Every tile lives on the bank's one device.
 """
 
 from __future__ import annotations
@@ -59,8 +68,9 @@ from repro_torch.core import hv
 from repro_torch.core.pipeline import HDCPipeline
 from repro_torch.serve.engine import FrameDecision, SessionSnapshot
 from repro_torch.serve.fleet import (_PACKED_LEAVES, DEFAULT_BUCKETS, FleetRound,
-                                     FleetState, StreamingFleet, _host_state,
-                                     _mask_from_meta, _mask_meta, derive_tile)
+                                     FleetState, StreamingFleet, _artifact_for,
+                                     _host_state, _mask_from_meta, _mask_meta,
+                                     derive_tile)
 
 
 class CapacityError(RuntimeError):
@@ -345,7 +355,20 @@ class ElasticFleet(StreamingFleet):
         self._ragged_buf = None  # the scatter buffers are capacity-shaped
         self._push_buf = None
         self._stats["spills"] += 1
+        if self._graphs:
+            self._warm_tile(k)
         return k
+
+    def _warm_tile(self, k: int) -> None:
+        """Capture tile ``k``'s step at every bucket, and its adapt, unless
+        captured already (a tile index compaction dropped keeps its
+        graphs): a warmed fleet's spilled tile is captured before its first
+        step."""
+        for b in self._buckets:
+            if (k, b) not in self._graphs:
+                self._capture_step(k, b)
+        if self._am_counts0 is not None and k not in self._adapt_graphs:
+            self._capture_adapt(k)
 
     def _drop_last_tile(self) -> None:
         """Drop the trailing tile (it must hold no live session), with its
@@ -663,12 +686,15 @@ class ElasticFleet(StreamingFleet):
             out["channel_mask"] = _mask_meta(self._cmask_h[:self._np])
         return out
 
-    def save(self, root: str, step: int | None = None) -> str:
+    def save(self, root: str, step: int | None = None,
+             aot_dir: str | None = None) -> str:
         """Incremental per-tile checkpoint: tiles unchanged since the last
         ``save`` are hard-linked from the previous step's files, never read
         back; the session table, the queue (snapshots and all) and the
         replay cursor ride the manifest meta.  ``restore`` + ``replay`` of
-        the events after the cursor is the crash-recovery contract."""
+        the events after the cursor is the crash-recovery contract.
+        ``aot_dir`` writes the deploy artifact and records it, as
+        ``StreamingFleet.save`` does."""
         if step is None:
             latest = ckpt.latest_step(root)
             step = 0 if latest is None else latest + 1
@@ -700,7 +726,8 @@ class ElasticFleet(StreamingFleet):
                 tree[key] = _host_state(st)
         meta = dict(self._meta())
         meta["lifecycle"] = self._lifecycle_meta()
-        path = ckpt.save(root, step, tree, meta=meta, link_from=link_from)
+        path = ckpt.save(root, step, tree, meta=meta, link_from=link_from,
+                         aot=self._save_aot_entry(aot_dir))
         self._dirty_t = [False] * len(self._state_t)
         return path
 
@@ -789,15 +816,29 @@ class ElasticFleet(StreamingFleet):
     @classmethod
     def from_checkpoint(cls, pipelines: Mapping[Hashable, HDCPipeline],
                         root: str, *, step: int | None = None,
+                        aot_dir: str | None = None, warm: bool = True,
                         **fleet_kwargs) -> "ElasticFleet":
-        """Worker restart: build an elastic fleet and restore the
-        checkpointed lifecycle state; the caller then ``replay``s the
-        surviving event suffix to catch up to the crash point."""
+        """Worker restart: build an elastic fleet, warm it (from the deploy
+        artifact the checkpoint records, or ``aot_dir``; a stale one warns
+        and warms from the usual build) and restore the checkpointed
+        lifecycle state, capturing each tile the restore spills; the caller
+        then ``replay``s the surviving event suffix to catch up to the
+        crash point."""
         fleet = cls(pipelines, **fleet_kwargs)
         if step is None:
             step = ckpt.latest_step(root)
             if step is None:
                 raise FileNotFoundError(
                     f"no fleet checkpoint under {root!r}")
+        art = _artifact_for(root, step, aot_dir, fleet.device)
+        if warm:
+            fleet.warmup(aot=art)
         fleet.restore(root, step)
         return fleet
+
+    @classmethod
+    def from_artifact(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "ElasticFleet restores via from_checkpoint(pipelines, root) — "
+            "its session set lives in the checkpoint, not a constructor "
+            "owners list")
