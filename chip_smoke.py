@@ -109,7 +109,20 @@ Phases (one line each, any failure exits non-zero):
    subprocesses: ``compile``, a warm start (0 compiled), a cold start from
    a copy of ``src/`` with an empty build directory with and without the
    artifact, a stale artifact, a SIGTERM drain and ``--resume``, the
-   channel monitor.
+   channel monitor;
+12. the LM zoo's serving path (no kernel of its own: plain PyTorch, as the
+   reference computes it in plain jnp), with the HDC phases' tensors freed:
+   qwen3-0.6b and deepseek-moe-16b at full width cut to 2 layers in
+   float32 (TF32 off), one CPU draw of the weights copied to the card,
+   prefill of 2 x 64 tokens and 8 greedy decode steps on the card and on
+   the CPU (logits and caches within 1e-3, greedy tokens equal, each MoE
+   layer's routed expert ids equal but for near-ties, counted); the full
+   configs qwen3-0.6b, internvl2-2b (256 media positions) and
+   deepseek-moe-16b in bfloat16 at full depth: weights drawn on the card,
+   prefill of 4 x 512 positions and 32 greedy decode steps, parameters,
+   weight and peak memory, prefill and decode times beside their bounds,
+   prefill/decode consistency; and ``launch/serve.py --arch qwen3-0.6b`` in
+   a subprocess.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -2677,6 +2690,322 @@ def deploy_phase(tag: str, sparse: dict, dense: dict, fit_bank: dict, records) -
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the LM zoo's serving path
+# ---------------------------------------------------------------------------
+
+# (a) the card against the CPU: full width, 2 layers, float32, TF32 off
+LM_CHECK_ARCHS = ("qwen3-0.6b", "deepseek-moe-16b")
+LM_CHECK_LAYERS = 2
+LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 64, 8
+LM_CHECK_TOL = 1e-3        # atol and rtol on the logits; on each cache, the max
+                           # abs difference over its largest |value|
+LM_TIE_MARGIN = 1e-5       # a routed id may differ only where the token's top-k
+LM_TIE_SHARE = 1e-3        # margin is below this, on at most this share of slots
+# (b) full configs in bfloat16, full depth
+LM_ARCHS = ("qwen3-0.6b", "internvl2-2b", "deepseek-moe-16b")
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 32
+LM_CONSISTENCY = 5e-2      # max |decode - prefill| over max |prefill logit|, bf16
+# (c) the --arch CLI
+LM_CLI = ["--arch", "qwen3-0.6b", "--batch", "2", "--prompt-len", "128", "--gen", "16"]
+# published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS_S = 989e12
+
+
+class _RouteLog:
+    """Records every ``moe._route`` call of a block: the routed expert ids
+    and each token's top-k margin (the k-th largest router probability less
+    the next one), both on the host."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self._moe, orig = moe, moe._route
+
+        def route(p, xf, cfg):
+            out = orig(p, xf, cfg)
+            probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+            top = probs.topk(cfg.experts_per_token + 1, dim=-1).values
+            self.calls.append((out[1].cpu(), (top[:, -2] - top[:, -1]).cpu()))
+            return out
+
+        self._orig, moe._route = orig, route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._orig
+        return False
+
+
+def _greedy(model, batch: dict, prompt: int, steps: int) -> dict:
+    """Prefill, then ``steps`` greedy decode steps; every step's logits, the
+    greedy tokens and the final caches, on the host."""
+    from repro_torch.models.params import flatten
+
+    logits, caches = model.prefill(batch, prompt + steps)
+    out = [logits]
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    toks = [tok]
+    for i in range(steps):
+        logits, caches = model.decode_step(tok, caches, prompt + i)
+        out.append(logits)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        toks.append(tok)
+    return {"logits": [x.cpu() for x in out], "tokens": torch.cat(toks, 1).cpu(),
+            "caches": {k: v.cpu() for k, v in flatten(caches).items()}}
+
+
+def lm_card_vs_cpu(tag: str, arch: str) -> dict:
+    """One CPU draw of the full-width config cut to two layers (float32),
+    copied to the card; prefill and greedy decode on both, held equal."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.models.params import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CHECK_LAYERS, dtype="float32")
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = LanguageModel.init(gen, cfg, device="cpu")
+    card = LanguageModel(cfg, tree_map(lambda t: t.cuda(), cpu.params()))
+    tokens = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, LM_CHECK_PROMPT), generator=gen,
+                           dtype=torch.int32)
+    runs, routes = {}, {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        with _RouteLog() as rl:
+            runs[name] = _greedy(m, {"tokens": tokens.to(m.device)}, LM_CHECK_PROMPT,
+                                 LM_CHECK_STEPS)
+        routes[name] = rl.calls
+    a, b = runs["card"], runs["cpu"]
+    expect(torch.equal(a["tokens"], b["tokens"]),
+           f"{arch}: greedy tokens differ, card {a['tokens'].tolist()} cpu {b['tokens'].tolist()}")
+    err = cache_err = 0.0
+    for i, (x, y) in enumerate(zip(a["logits"], b["logits"])):
+        expect(torch.allclose(x, y, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL),
+               f"{arch}: logits of step {i} differ by {float((x - y).abs().max())}")
+        err = max(err, float((x - y).abs().max()))
+    # The reference's init draws a stacked leaf without fan-in dims at scale
+    # 1 / sqrt(layers) (1 for a one-layer stack), so activations and scores
+    # grow large: the softmax is near an argmax and a float32 rounding where
+    # two keys nearly tie moves that row's output.  The caches are held at a
+    # tolerance relative to their own scale; the logits above absolutely.
+    for k, y in b["caches"].items():
+        rel = float((a["caches"][k] - y).abs().max() / y.abs().max())
+        expect(rel <= LM_CHECK_TOL, f"{arch}: cache {k} differs by {rel:.3g} of its "
+               "largest value")
+        cache_err = max(cache_err, rel)
+    expect(len(routes["card"]) == len(routes["cpu"]), f"{arch}: route calls differ")
+    slots = flips = 0
+    for (ids_a, _), (ids_b, margin) in zip(routes["card"], routes["cpu"]):
+        differ = (ids_a != ids_b).any(dim=1)
+        expect(bool((margin[differ] < LM_TIE_MARGIN).all()),
+               f"{arch}: a routed id differs at a top-k margin of at least {LM_TIE_MARGIN}")
+        slots += ids_b.numel()
+        flips += int((ids_a != ids_b).sum())
+    expect(flips <= LM_TIE_SHARE * max(slots, 1),
+           f"{arch}: {flips} of {slots} routed slots differ (near-ties)")
+    out = {"arch": arch, "layers": LM_CHECK_LAYERS, "max_abs_err": err,
+           "cache_rel_err": cache_err,
+           "tokens_equal": True, "route_calls": len(routes["cpu"]), "routed_slots": slots,
+           "tie_flips": flips, "s": time.perf_counter() - t0}
+    log(f"[{tag}] card vs CPU, {arch} full width x {LM_CHECK_LAYERS} layers, float32, "
+        f"batch {LM_CHECK_BATCH} x {LM_CHECK_PROMPT} + {LM_CHECK_STEPS} greedy steps: "
+        f"tokens equal, logits within {LM_CHECK_TOL} (max abs err {err:.3g}), caches "
+        f"within {LM_CHECK_TOL} of their largest value ({cache_err:.3g}); "
+        f"routed slots {slots}, {flips} differ at a near-tie; {out['s']:.1f} s")
+    del cpu, card, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_work(cfg, weight_bytes: int, embed_bytes: int, batch: int, prompt: int,
+             steps: int) -> dict:
+    """Least bytes and operations of one prefill of ``batch`` x ``prompt``
+    positions and of the mean decode step after it (bf16 weights and
+    caches).  Untied, the embedding table is only gathered, so it is not
+    read whole.  The index dispatch meets every expert, so every expert's
+    weights count as read (prefill and decode alike); the operations count
+    the routed tokens only."""
+    d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    read = weight_bytes - (0 if cfg.tie_embeddings else embed_bytes)
+    attn_w = d * hd * (h + 2 * kv) + h * hd * d
+    n_moe = cfg.n_layers - cfg.first_k_dense if cfg.is_moe else 0
+    eff = cfg.moe_d_ff or cfg.d_ff
+    ffn = ((cfg.n_layers - n_moe) * 3 * d * cfg.d_ff
+           + n_moe * (d * cfg.n_experts + (cfg.experts_per_token + cfg.n_shared_experts)
+                      * 3 * d * eff))
+    per_tok = cfg.n_layers * attn_w + ffn
+    kv_row = cfg.n_layers * kv * hd * 2 * 2            # k and v of one position, bf16
+    t = batch * prompt
+    prefill_ops = (2 * t * per_tok + 2 * batch * d * cfg.vocab
+                   + cfg.n_layers * 4 * batch * h * hd * prompt * (prompt + 1) / 2)
+    prefill_bytes = read + t * kv_row + t * d * 2
+    seen = prompt + (steps + 1) / 2                     # mean positions a step attends
+    decode_ops = (2 * batch * per_tok + 2 * batch * d * cfg.vocab
+                  + cfg.n_layers * 4 * batch * h * hd * seen)
+    decode_bytes = read + batch * seen * kv_row
+
+    def bound(n_bytes, n_ops):
+        tb, to = n_bytes / PEAK_BYTES_S, n_ops / PEAK_BF16_FLOPS_S
+        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+    pb, pby = bound(prefill_bytes, prefill_ops)
+    db, dby = bound(decode_bytes, decode_ops)
+    return {"prefill_bytes": prefill_bytes, "prefill_flops": prefill_ops,
+            "prefill_bound_ms": pb, "prefill_bound_by": pby,
+            "decode_bytes": decode_bytes, "decode_flops": decode_ops,
+            "decode_bound_ms": db, "decode_bound_by": dby}
+
+
+def _profiled(fn) -> dict:
+    """One profiled call of ``fn``: host wall to a synchronise, device busy
+    and idle share, device kernels (copies and fills aside), and the six
+    device entries with the most time (us)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_busy(prof)
+    cuda_t = torch.autograd.DeviceType.CUDA
+    kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda_t
+                  and not e.name().startswith(("Memcpy", "Memset")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall,
+            "kernels": kernels, "top_us": [[k[:90], v] for k, v in top]}
+
+
+def lm_full(tag: str, arch: str) -> dict:
+    """The full config in bfloat16 on the card: weights drawn there,
+    prefill of LM_BATCH x LM_PROMPT positions (a warm call, a timed one, a
+    profiled one), LM_STEPS greedy decode steps (each timed to a
+    synchronise, the last profiled), peak memory, and prefill/decode
+    consistency (MoE at capacity factor 8, where decode drops nothing)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.models import serve
+    from repro_torch.models.model import LanguageModel, model_spec
+    from repro_torch.models.params import count_params
+    from repro_torch.runtime import steps as steps_mod
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = LanguageModel.init(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    expect(n_params == count_params(model_spec(cfg)), f"{arch}: parameter count")
+    expect(model.embed.dtype == torch.bfloat16, f"{arch}: weights not bfloat16")
+    batch = lmdata.synth_batch(gen, cfg, lmdata.ShapeSpec("serve", LM_PROMPT, LM_BATCH,
+                                                          "prefill"))
+    n_media = cfg.num_media_tokens if cfg.family == "vlm" else 0
+    expect(batch["tokens"].shape[1] + n_media == LM_PROMPT, f"{arch}: prompt length")
+    params = model.params()
+    prefill = steps_mod.make_prefill(cfg, LM_PROMPT + LM_STEPS)
+    decode = steps_mod.make_decode_step(cfg)
+
+    prefill(params, batch)                      # warm: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_prof = _profiled(lambda: prefill(params, batch))
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    step_ms = []
+    for i in range(LM_STEPS - 1):
+        t0 = time.perf_counter()
+        logits, caches = decode(params, tok, caches, LM_PROMPT + i)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(logits).all()
+
+    def last_step():
+        nonlocal logits
+        logits, _ = decode(params, tok, caches, LM_PROMPT + LM_STEPS - 1)
+
+    decode_prof = _profiled(last_step)          # the last step, profiled
+    finite &= torch.isfinite(logits).all()
+    expect(bool(finite), f"{arch}: non-finite logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_ms = float(np.median(step_ms[1:]))
+    del caches, logits
+
+    ccfg = dataclasses.replace(cfg, capacity_factor=8.0) if cfg.is_moe else cfg
+    full, _ = serve.prefill(params, batch, ccfg, LM_PROMPT)
+    prefix = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, pcaches = serve.prefill(params, prefix, ccfg, LM_PROMPT)
+    dec, _ = serve.decode_step(params, batch["tokens"][:, -1:], pcaches, LM_PROMPT - 1, ccfg)
+    rel = float((dec.float() - full.float()).abs().max() / full.float().abs().max())
+    expect(rel <= LM_CONSISTENCY, f"{arch}: prefill/decode consistency {rel:.3g} "
+           f"above {LM_CONSISTENCY}")
+    embed_bytes = model.embed.numel() * model.embed.element_size()
+    out = {"arch": arch, "params": n_params, "weight_gb": weight_bytes / 1e9,
+           "peak_gb": peak_gb, "init_s": init_s, "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "decode_step_ms": step_ms,
+           "prefill_profiled": prefill_prof, "decode_profiled": decode_prof,
+           "tok_s": LM_BATCH / (decode_ms / 1e3), "consistency": rel,
+           "capacity_factor": cfg.capacity_factor if cfg.is_moe else None,
+           **_lm_work(cfg, weight_bytes, embed_bytes, LM_BATCH, LM_PROMPT, LM_STEPS)}
+    log(f"[{tag}] {arch} bf16, {n_params / 1e6:.1f} M parameters, {out['weight_gb']:.2f} GB "
+        f"weights (drawn in {init_s:.2f} s), peak {peak_gb:.2f} GB: prefill {LM_BATCH} x "
+        f"{LM_PROMPT} in {prefill_ms:.3f} ms (bound {out['prefill_bound_ms']:.3f} ms, "
+        f"{out['prefill_bound_by']}; profiled: busy {prefill_prof['busy_ms']:.3f} ms, "
+        f"{prefill_prof['kernels']} kernels); decode {decode_ms:.3f} ms a step (median of "
+        f"{LM_STEPS - 2} after one warm step; bound {out['decode_bound_ms']:.3f} ms, "
+        f"{out['decode_bound_by']}; profiled: busy {decode_prof['busy_ms']:.3f} ms, idle "
+        f"{decode_prof['idle']:.1%}, {decode_prof['kernels']} kernels), "
+        f"{out['tok_s']:.1f} tok/s; consistency {rel:.3g} "
+        f"(at most {LM_CONSISTENCY}"
+        + (", capacity factor 8" if cfg.is_moe else "") + ")")
+    del model, params, batch, full, dec, pcaches
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_cli(tag: str) -> dict:
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, secs = _cli(LM_CLI, env, "--arch")
+    lines = {p: _line(out, p) for p in ("prefill:", "decode:", "generated token ids")}
+    ids = [ln for ln in out.splitlines() if ln.strip().startswith("[")]
+    expect(len(ids) == 2 and all(ln.count(",") == 15 for ln in ids),
+           f"CLI --arch: token id rows {ids}")
+    log(f"[{tag}] CLI {' '.join(LM_CLI)}: {lines['prefill:']}; {lines['decode:']}; "
+        f"{secs:.1f} s in all")
+    return {"s": secs, **lines}
+
+
+def lm_phase(tag: str) -> dict:
+    """Phase 12: the LM zoo's serving path on the card."""
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        check = [lm_card_vs_cpu(tag, arch) for arch in LM_CHECK_ARCHS]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"card_vs_cpu": check, "full": [lm_full(tag, arch) for arch in LM_ARCHS],
+           "cli": lm_cli(tag)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 12 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2821,6 +3150,19 @@ def main() -> int:
              "compile_s", "warm_first_decision_s", "fresh_artifact", "fresh_build",
              "drain_s")},
          "hwmodel": deploy["hwmodel"]["ratios"], "phase_s": deploy["phase_s"]}))
+
+    # phase 12: the LM zoo's serving path, with the HDC phases' tensors freed
+    del (patients, codes, records, sparse, res, dense, dense_bank, fit_bank, online,
+         elastic, rel, deploy)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_phase("lm")
+    log("[lm] " + json.dumps(
+        {"card_vs_cpu": lm["card_vs_cpu"],
+         "full": [{k: v for k, v in r.items() if k != "decode_step_ms"} for r in lm["full"]],
+         "cli_s": lm["cli"]["s"], "phase_s": lm["phase_s"]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
-"""Carry a trained pipeline from numpy arrays into the port.
+"""Carry a trained pipeline, or an LM's weights, from numpy arrays into
+the port.
 
-The reference draws its codebooks with ``jax.random``, which
+The reference draws its codebooks and weights with ``jax.random``, which
 ``torch.Generator`` cannot replay, so parity between the two packages
-transfers them: the caller turns the reference pipeline's leaves into
-numpy arrays (``np.asarray``) and its config into a field mapping, and
-this module rebuilds the port's objects from those.  Nothing here imports
-the reference package.
+transfers them: the caller turns the reference's leaves into numpy arrays
+(``np.asarray``) and its config into a field mapping, and this module
+rebuilds the port's objects from those.  Nothing here imports the
+reference package.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from repro_torch.core.im import DenseIMParams, IMParams
 from repro_torch.core.online import OnlineAMState
 from repro_torch.core.pipeline import HDCPipeline, _check_cfg
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import LanguageModel, model_spec
+from repro_torch.models.params import check_tree, tree_map
 
 _CFG_FIELDS = {f.name for f in fields(HDCConfig)}
 
@@ -92,3 +96,25 @@ def pipeline_from_arrays(cfg_fields: Mapping, item: np.ndarray,
             counts=torch.from_numpy(np.asarray(am_counts, np.int32).copy()).to(dev),
             n=torch.from_numpy(np.asarray(am_n, np.int32).copy()).to(dev))
     return HDCPipeline(params=params, cfg=cfg, class_hvs=chvs, am_state=state)
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same values; bfloat16 (numpy's
+    ``ml_dtypes`` extension type) goes through float32, which holds it
+    exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_reference(cfg: ArchConfig, tree: Mapping,
+                             device=None) -> LanguageModel:
+    """The port's ``LanguageModel`` holding exactly the values of a
+    reference parameter tree (nested dicts of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them), on ``device``
+    (default: the card).  The layouts are the reference's, so no leaf is
+    transposed; a missing, extra or mis-shaped leaf is refused."""
+    check_tree(model_spec(cfg), tree, what="reference params")
+    dev = resolve_device(device)
+    return LanguageModel(cfg, tree_map(lambda a: _leaf_tensor(a).to(dev), tree))

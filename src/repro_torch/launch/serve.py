@@ -1,5 +1,11 @@
-"""Serving launcher for the HDC streaming fleet (port of the fleet half of
-``repro.launch.serve``).
+"""Serving launcher: the LM zoo's prefill and greedy decode loop, or the
+HDC streaming fleet (port of ``repro.launch.serve``).
+
+LM zoo (dense, vlm and moe families; weights drawn from a seed):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --batch 2 --prompt-len 128 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --reduced --device cpu
 
 Serve a fleet on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --hdc-fleet \
@@ -25,10 +31,10 @@ monitor (``reliability/channels.py``) over every round's codes and feeds
 its masks to a masked fleet; ``--inject-fault CH:KIND`` faults a channel
 of every stream.
 
-``--device cpu`` runs the fleet's plain PyTorch path on the CPU (the tests
-use it); ``compile`` then exits, since a CPU fleet has no kernel library to
-ship.  Not ported: the LM path (``--arch`` and its options) and ``--mesh``
-(tiles on several cards).
+``--device cpu`` runs the plain PyTorch path on the CPU (the tests use
+it); ``compile`` then exits, since a CPU fleet has no kernel library to
+ship.  Not ported: ``--mesh`` and ``--seq-sharded-kv`` (several cards),
+which are refused.
 """
 
 from __future__ import annotations
@@ -258,6 +264,58 @@ def run_hdc_fleet(args, t_start: float) -> None:
         raise SystemExit(0)
 
 
+def run_lm(args) -> None:
+    """Prefill a synthetic prompt, then decode ``--gen - 1`` greedy tokens
+    after the first, printing the prefill time, the decode time and rate,
+    and the generated token ids (the reference's ``run_lm``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.runtime import steps as steps_mod
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    cache_seq = args.prompt_len + args.gen
+    shape = lmdata.ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
+    batch = lmdata.synth_batch(torch.Generator(device=dev).manual_seed(0), cfg, shape)
+    model = LanguageModel.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    params = model.params()
+    prefill_fn = steps_mod.make_prefill(cfg, cache_seq)
+    decode_fn = steps_mod.make_decode_step(cfg)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, batch)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    print(f"prefill: {args.batch} x {args.prompt_len} tokens in "
+          f"{t_prefill * 1e3:.1f} ms")
+
+    n_media = cfg.num_media_tokens if cfg.family == "vlm" else 0
+    pos0 = batch["tokens"].shape[1] + n_media
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, caches = decode_fn(params, tok, caches, pos0 + i)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        out_tokens.append(tok)
+    sync()
+    t_dec = time.perf_counter() - t0
+    gen = torch.cat(out_tokens, dim=1).cpu()
+    print(f"decode: {args.gen - 1} steps in {t_dec * 1e3:.1f} ms "
+          f"({(args.gen - 1) * args.batch / max(t_dec, 1e-9):.1f} tok/s)")
+    print("generated token ids (greedy):")
+    for b in range(min(args.batch, 4)):
+        print(f"  [{b}] {gen[b].tolist()}")
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
@@ -265,11 +323,22 @@ def main():
                     choices=["serve", "compile"],
                     help="serve (default) or compile: write the --aot-dir "
                          "deploy artifact for the HDC fleet and exit")
+    ap.add_argument("--arch", default=None,
+                    help="LM zoo architecture to serve (dense, vlm and moe "
+                         "families)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="with --arch: the config's small same-family copy")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--mesh", default=None, help="not ported: refused")
+    ap.add_argument("--seq-sharded-kv", action="store_true",
+                    help="not ported: refused")
     ap.add_argument("--hdc-fleet", action="store_true",
                     help="serve the HDC seizure-detection streaming fleet")
     ap.add_argument("--device", default=None,
-                    help="torch device of the bank and fleet (default: the "
-                         "CUDA card; 'cpu' runs the plain path)")
+                    help="torch device of the model, or of the bank and fleet "
+                         "(default: the CUDA card; 'cpu' runs the plain path)")
     ap.add_argument("--sessions", type=int, default=64)
     ap.add_argument("--patients", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=4)
@@ -301,12 +370,18 @@ def main():
                     help="deploy-artifact directory (runtime/aot.py): "
                          "`compile` writes it, `serve` warms the fleet from it")
     args = ap.parse_args()
+    if args.mesh or args.seq_sharded_kv:
+        ap.error("--mesh and --seq-sharded-kv place work on several cards, "
+                 "which the port does not do yet")
     if args.command == "compile":
         run_hdc_compile(args)
         return
-    if not args.hdc_fleet:
-        ap.error("pass --hdc-fleet (the LM path is not ported)")
-    run_hdc_fleet(args, t_start)
+    if args.hdc_fleet:
+        run_hdc_fleet(args, t_start)
+        return
+    if not args.arch:
+        ap.error("--arch is required (or pass --hdc-fleet)")
+    run_lm(args)
 
 
 if __name__ == "__main__":

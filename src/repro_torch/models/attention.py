@@ -1,0 +1,220 @@
+"""Attention: GQA with RoPE and optional qk-norm.
+
+Three entry points, as in the reference's ``models/attention.py``:
+
+* ``attention_train``  — full-sequence causal (or bidirectional) attention by
+  chunked online softmax over KV chunks; the L x L score matrix is never
+  materialised, the live tile is (B, KV, G, q_block, kv_chunk).
+* ``attention_prefill`` — causal attention that also returns the K/V cache.
+* ``attention_decode`` — one query token against a (B, S, KV, hd) cache.
+
+Query heads are grouped as (KV, G) and contracted against the raw KV
+tensors: K/V are never expanded to H heads.  The cross-attention functions
+belong to the encoder-decoder family, which the port does not serve yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.params import ParamSpec
+
+DEFAULT_Q_BLOCK = 4096
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def attention_spec(cfg: ArchConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    spec = {
+        "wq": ParamSpec((d, h, hd), ("fsdp", "tp", None)),
+        "wk": ParamSpec((d, kv, hd), ("fsdp", "tp", None)),
+        "wv": ParamSpec((d, kv, hd), ("fsdp", "tp", None)),
+        "wo": ParamSpec((h, hd, d), ("tp", None, "fsdp"), fan_in_dims=(0, 1)),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        spec["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# shared helpers
+# ---------------------------------------------------------------------------
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, L, d) x (d, H, hd) -> (B, L, H, hd)."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+
+
+def _out(x: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, hd) x (H, hd, d) -> (B, L, d)."""
+    h, hd, d = wo.shape
+    return x.flatten(-2) @ wo.reshape(h * hd, d)
+
+
+def _scale(hd: int) -> float:
+    """1 / sqrt(hd) rounded to float32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _project_qkv(params, x, kv_x, cfg: ArchConfig, positions, kv_positions,
+                 rope: bool):
+    q = _proj(x, params["wq"])
+    k = _proj(kv_x, params["wk"])
+    v = _proj(kv_x, params["wv"])
+    if cfg.qk_norm and "q_norm" in params:   # qk-norm before RoPE
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# chunked online-softmax attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _chunked_attention(q, k, v, *, causal: bool, q_offset: int,
+                       kv_chunk: int, bf16_intermediates: bool = False,
+                       q_block: int = DEFAULT_Q_BLOCK) -> torch.Tensor:
+    """q: (B, Lq, H, hd), k/v: (B, Lk, KV, hd), grouped GQA.
+
+    The query axis is split into ``q_block`` tiles, and each tile
+    online-softmax-scans only the KV chunks it can causally see: fully
+    masked (tile, chunk) pairs are never computed.  The running max and sum
+    and the output accumulator stay float32; ``bf16_intermediates`` makes
+    the scores and probabilities bfloat16.
+    """
+    b, lq, h, hd = q.shape
+    lk, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    kv_chunk = min(kv_chunk, lk)
+    n_chunks = -(-lk // kv_chunk)
+    pad = n_chunks * kv_chunk - lk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    cdt = torch.bfloat16 if bf16_intermediates else torch.float32
+    scale = torch.tensor(_scale(hd), dtype=cdt).item()
+    qt = (q.to(cdt) * scale).reshape(b, lq, n_kv, g, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1).to(cdt)                              # (B,KV,hd,Lk)
+    vt = v.permute(0, 2, 1, 3).to(cdt)                              # (B,KV,Lk,hd)
+    kt = kt.reshape(b, n_kv, hd, n_chunks, kv_chunk).permute(3, 0, 1, 2, 4)
+    vt = vt.reshape(b, n_kv, n_chunks, kv_chunk, hd).permute(2, 0, 1, 3, 4)
+    dev = q.device
+
+    def attend_tile(q_tile, tile_start, tile_len, n_vis):
+        """q_tile: (B,KV,G,tile_len,hd); scans its n_vis visible KV chunks."""
+        q_rows = q_tile.reshape(b, n_kv, g * tile_len, hd)
+        q_pos = q_offset + tile_start + torch.arange(tile_len, device=dev)
+        m = torch.full((b, n_kv, g, tile_len), float("-inf"), device=dev)
+        s = torch.zeros((b, n_kv, g, tile_len), device=dev)
+        acc = torch.zeros((b, n_kv, g, tile_len, hd), device=dev)
+        for idx in range(n_vis):
+            scores = (q_rows @ kt[idx]).view(b, n_kv, g, tile_len, kv_chunk)  # cdt
+            kv_pos = idx * kv_chunk + torch.arange(kv_chunk, device=dev)
+            if causal:
+                mask = kv_pos[None, :] <= q_pos[:, None]
+            else:
+                mask = torch.ones((tile_len, kv_chunk), dtype=torch.bool, device=dev)
+            mask = mask & (kv_pos < lk)[None, :]                     # padding
+            sc = torch.where(mask, scores.float(), float("-inf"))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            # guard fully-masked rows (m == -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(sc - m_safe[..., None])
+            p = torch.where(mask, p, 0.0)
+            fin = torch.isfinite(m)
+            corr = torch.where(fin, torch.exp(torch.where(fin, m - m_safe, 0.0)), 0.0)
+            s = s * corr + p.sum(dim=-1)
+            # products of cdt operands, accumulated and kept in float32
+            pv = p.to(cdt).float().reshape(b, n_kv, g * tile_len, kv_chunk) @ vt[idx].float()
+            acc = acc * corr[..., None] + pv.view(b, n_kv, g, tile_len, hd)
+            m = m_new
+        return acc / torch.clamp(s, min=1e-30)[..., None]
+
+    q_block = min(q_block, lq)
+    n_qb = -(-lq // q_block)
+    outs = []
+    for i in range(n_qb):
+        start = i * q_block
+        tl = min(q_block, lq - start)
+        if causal:
+            n_vis = min(n_chunks, -(-(q_offset + start + tl) // kv_chunk))
+        else:
+            n_vis = n_chunks
+        outs.append(attend_tile(qt[:, :, :, start:start + tl], start, tl, max(n_vis, 1)))
+    out = torch.cat(outs, dim=3) if n_qb > 1 else outs[0]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, hd).to(q.dtype)
+
+
+def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                    causal: bool = True, kv_chunk: int | None = None) -> torch.Tensor:
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
+    out = _chunked_attention(q, k, v, causal=causal, q_offset=0,
+                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
+                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    return _out(out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# prefill (returns the KV cache) and single-token decode
+# ---------------------------------------------------------------------------
+
+def attention_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                      kv_chunk: int | None = None):
+    """Causal attention that also returns the (B, L, KV, hd) cache."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
+    out = _chunked_attention(q, k, v, causal=True, q_offset=0,
+                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
+                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    return _out(out, params["wo"]), (k, v)
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
+                     cfg: ArchConfig) -> tuple[torch.Tensor, tuple]:
+    """x: (B, 1, d); cache: (k, v) each (B, S, KV, hd); pos: the position
+    of the token (a Python int).
+
+    Writes the token's K/V into the cache at ``pos`` in place and returns
+    the caches with the output; scores the whole cache length S in float32
+    under the mask ``arange(S) <= pos``.
+    """
+    b = x.shape[0]
+    k_cache, v_cache = cache
+    s = k_cache.shape[1]
+    if not 0 <= pos < s:
+        raise IndexError(f"decode position {pos} outside the cache's {s} positions")
+    q = _proj(x, params["wq"])
+    k_new = _proj(x, params["wk"])
+    v_new = _proj(x, params["wv"])
+    if cfg.qk_norm and "q_norm" in params:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k_new = rmsnorm(k_new, params["k_norm"], cfg.norm_eps)
+    positions = torch.full((1,), pos, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+
+    hd, h, n_kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    g = h // n_kv
+    qg = q.reshape(b, n_kv, g, hd)                        # grouped, no KV expand
+    # q is promoted to float32 before the scale, as a bf16 x f32 product is
+    scores = (qg.float() * _scale(hd)) @ k_cache.float().permute(0, 2, 3, 1)
+    mask = torch.arange(s, device=x.device) <= pos       # scores: (B, KV, G, S)
+    probs = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1)
+    out = probs @ v_cache.float().permute(0, 2, 1, 3)     # (B, KV, G, hd)
+    out = out.reshape(b, 1, h, hd).to(x.dtype)
+    return _out(out, params["wo"]), (k_cache, v_cache)

@@ -1,0 +1,83 @@
+"""Common transformer layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+
+Plain PyTorch, one function per function of the reference's
+``models/layers.py``, with its order of operations and dtypes: reductions
+and rotations in float32, results cast back to the input's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import ParamSpec
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), (None,), init="ones")
+
+
+def mlp_spec(d: int, ff: int) -> dict:
+    return {
+        "w_gate": ParamSpec((d, ff), ("fsdp", "tp")),
+        "w_up": ParamSpec((d, ff), ("fsdp", "tp")),
+        "w_down": ParamSpec((ff, d), ("tp", "fsdp")),
+    }
+
+
+def embed_spec(vocab: int, d: int) -> ParamSpec:
+    return ParamSpec((vocab, d), ("tp", "fsdp"), init="embed")
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Normalise in float32, cast to ``x``'s dtype, then scale."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP."""
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    return (F.silu(gate) * up) @ params["w_down"]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, L, H, hd); positions: (L,) or (B, L).  Half-split rotation
+    (first half against second half, not interleaved pairs), computed in
+    float32 and cast back."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs           # (..., L, hd/2)
+    if angles.ndim == 2:                                     # (L, hd/2) -> broadcast B
+        angles = angles[None]
+    cos = torch.cos(angles)[..., None, :]                    # (B, L, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *, tied: bool) -> torch.Tensor:
+    """Logits; tied => table is (V, d), else head is (d, V)."""
+    if tied:
+        return x @ table_or_head.T
+    return x @ table_or_head

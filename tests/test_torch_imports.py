@@ -52,14 +52,15 @@ def test_import_scan_covers_every_package():
     """The scan above reads every package of the port, ``ckpt`` included."""
     packages = {p.parent.name for p in PORT_FILES}
     assert {"core", "kernels", "serve", "ckpt", "data", "reliability", "runtime",
-            "analysis", "launch"} <= packages
+            "analysis", "launch", "models", "configs"} <= packages
     assert ROOT / "src" / "repro_torch" / "ckpt" / "checkpoint.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "serve" / "lifecycle.py" in PORT_FILES
     for name in ("ecc", "faults", "sweep", "channels"):
         assert ROOT / "src" / "repro_torch" / "reliability" / f"{name}.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "core" / "hwmodel.py" in PORT_FILES
     for rel in ("runtime/aot.py", "runtime/graphs.py", "analysis/guards.py",
-                "launch/serve.py"):
+                "launch/serve.py", "runtime/steps.py", "data/lm.py",
+                "configs/registry.py", "configs/hdc_ieeg.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -83,7 +84,11 @@ def test_every_port_module_imports_without_building():
             "repro_torch.reliability.faults", "repro_torch.reliability.sweep",
             "repro_torch.reliability.channels", "repro_torch.runtime.aot",
             "repro_torch.runtime.graphs", "repro_torch.analysis.guards",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.runtime.steps",
+            "repro_torch.data.lm", "repro_torch.configs.registry"} | {
+                f"repro_torch.models.{m}" for m in (
+                    "config", "params", "layers", "attention", "moe", "model",
+                    "serve")} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert build._lib is None
