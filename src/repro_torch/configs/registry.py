@@ -1,9 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
 Also owns the per-arch shape applicability matrix (which of the four
-input shapes each architecture runs).  Every config loads; building a
-model of a family the port does not serve yet raises
-(``models/model.py::model_spec``).
+input shapes each architecture runs).  Every config loads and serves.
 """
 
 from __future__ import annotations

@@ -51,6 +51,12 @@ def text_len(cfg: ArchConfig, seq: int, kind: str) -> int:
     return seq
 
 
+def enc_len(seq: int) -> int:
+    """The encoder length of a decode step's cross caches at context ``seq``
+    (the text length's 8:1 ratio, as the reference sizes them)."""
+    return max(seq // 8, 16)
+
+
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     """Stand-ins for every model input on the ``meta`` device (shapes and
     dtypes, no allocation: a 32k-context decode cache of command-r is about
@@ -71,7 +77,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
         if cfg.family in ("encdec", "audio"):
             spec["frames"] = meta(b, seq, d)
         return spec
-    caches = serve_mod.init_caches(cfg, b, seq, getattr(torch, cfg.dtype), device="meta")
+    caches = serve_mod.init_caches(cfg, b, seq, getattr(torch, cfg.dtype), device="meta",
+                                   enc_len=enc_len(seq))
     return {"tokens": meta(b, 1, dtype=torch.int32), "caches": caches,
             "pos": meta(dtype=torch.int32)}
 
@@ -80,7 +87,8 @@ def synth_batch(generator: torch.Generator, cfg: ArchConfig, shape: ShapeSpec,
                 batch_override: int | None = None) -> dict:
     """A random batch on the generator's device (tokens, then labels, then
     media or frames, drawn in that order).  A decode batch holds zero caches
-    of ``seq_len`` and ``pos = seq_len // 2``."""
+    of ``seq_len`` (cross caches of ``enc_len(seq_len)``) and
+    ``pos = seq_len // 2``."""
     b = batch_override or shape.global_batch
     seq = shape.seq_len
     tl = text_len(cfg, seq, shape.kind)
@@ -104,7 +112,8 @@ def synth_batch(generator: torch.Generator, cfg: ArchConfig, shape: ShapeSpec,
         return out
     out["tokens"] = tokens(1)
     out["pos"] = seq // 2
-    out["caches"] = serve_mod.init_caches(cfg, b, seq, getattr(torch, cfg.dtype), dev)
+    out["caches"] = serve_mod.init_caches(cfg, b, seq, getattr(torch, cfg.dtype), dev,
+                                          enc_len=enc_len(seq))
     return out
 
 

@@ -1,10 +1,13 @@
 """Serving launcher: the LM zoo's prefill and greedy decode loop, or the
 HDC streaming fleet (port of ``repro.launch.serve``).
 
-LM zoo (dense, vlm and moe families; weights drawn from a seed):
+LM zoo (every registered config; weights drawn from a seed; an audio
+model's encoder is fed random frames):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --batch 2 --prompt-len 128 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --reduced --device cpu
 
 Serve a fleet on the card:
@@ -324,8 +327,8 @@ def main():
                     help="serve (default) or compile: write the --aot-dir "
                          "deploy artifact for the HDC fleet and exit")
     ap.add_argument("--arch", default=None,
-                    help="LM zoo architecture to serve (dense, vlm and moe "
-                         "families)")
+                    help="LM zoo architecture to serve (any registered "
+                         "config)")
     ap.add_argument("--reduced", action="store_true",
                     help="with --arch: the config's small same-family copy")
     ap.add_argument("--batch", type=int, default=2)

@@ -1,16 +1,19 @@
 """Attention: GQA with RoPE and optional qk-norm.
 
-Three entry points, as in the reference's ``models/attention.py``:
+The entry points of the reference's ``models/attention.py``:
 
 * ``attention_train``  — full-sequence causal (or bidirectional) attention by
   chunked online softmax over KV chunks; the L x L score matrix is never
   materialised, the live tile is (B, KV, G, q_block, kv_chunk).
 * ``attention_prefill`` — causal attention that also returns the K/V cache.
 * ``attention_decode`` — one query token against a (B, S, KV, hd) cache.
+* ``attention_cross`` — encoder-decoder cross attention (no RoPE, no causal
+  mask), chunked; ``cross_cache_from_encoder`` projects the encoder output
+  once at prefill, and ``attention_cross_decode`` scores one query against
+  that static cache.
 
 Query heads are grouped as (KV, G) and contracted against the raw KV
-tensors: K/V are never expanded to H heads.  The cross-attention functions
-belong to the encoder-decoder family, which the port does not serve yet.
+tensors: K/V are never expanded to H heads.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ DEFAULT_Q_BLOCK = 4096
 # specs
 # ---------------------------------------------------------------------------
 
-def attention_spec(cfg: ArchConfig) -> dict:
+def attention_spec(cfg: ArchConfig, cross: bool = False) -> dict:
+    """A cross-attention block (``cross``) has no qk-norm."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     spec = {
@@ -38,7 +42,7 @@ def attention_spec(cfg: ArchConfig) -> dict:
         "wv": ParamSpec((d, kv, hd), ("fsdp", "tp", None)),
         "wo": ParamSpec((h, hd, d), ("tp", None, "fsdp"), fan_in_dims=(0, 1)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["q_norm"] = ParamSpec((hd,), (None,), init="ones")
         spec["k_norm"] = ParamSpec((hd,), (None,), init="ones")
     return spec
@@ -167,6 +171,17 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     return _out(out, params["wo"])
 
 
+def attention_cross(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                    cfg: ArchConfig, *, kv_chunk: int | None = None) -> torch.Tensor:
+    """Queries from x (B, Lq, d) over keys and values of ``enc_out``
+    (B, Lk, d): no RoPE, no mask."""
+    q, k, v = _project_qkv(params, x, enc_out, cfg, None, None, False)
+    out = _chunked_attention(q, k, v, causal=False, q_offset=0,
+                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
+                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    return _out(out, params["wo"])
+
+
 # ---------------------------------------------------------------------------
 # prefill (returns the KV cache) and single-token decode
 # ---------------------------------------------------------------------------
@@ -208,13 +223,40 @@ def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
     k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
     v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
 
-    hd, h, n_kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    g = h // n_kv
-    qg = q.reshape(b, n_kv, g, hd)                        # grouped, no KV expand
-    # q is promoted to float32 before the scale, as a bf16 x f32 product is
-    scores = (qg.float() * _scale(hd)) @ k_cache.float().permute(0, 2, 3, 1)
+    scores = _grouped_scores(q, k_cache, cfg)
     mask = torch.arange(s, device=x.device) <= pos       # scores: (B, KV, G, S)
-    probs = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1)
-    out = probs @ v_cache.float().permute(0, 2, 1, 3)     # (B, KV, G, hd)
-    out = out.reshape(b, 1, h, hd).to(x.dtype)
-    return _out(out, params["wo"]), (k_cache, v_cache)
+    out = _attend_cache(torch.where(mask, scores, float("-inf")), v_cache)
+    return _out(out.reshape(b, 1, cfg.n_heads, -1).to(x.dtype), params["wo"]), \
+        (k_cache, v_cache)
+
+
+def _grouped_scores(q: torch.Tensor, k_cache: torch.Tensor, cfg: ArchConfig):
+    """One query token (B, 1, H, hd) against a (B, S, KV, hd) cache ->
+    float32 scores (B, KV, G, S).  q is promoted to float32 before its
+    scale, as a bf16 x f32 product is in the reference."""
+    hd, n_kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    qg = q.reshape(q.shape[0], n_kv, cfg.n_heads // n_kv, hd)  # grouped, no KV expand
+    return (qg.float() * _scale(hd)) @ k_cache.float().permute(0, 2, 3, 1)
+
+
+def _attend_cache(scores: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """Softmax of float32 scores (B, KV, G, S) over a (B, S, KV, hd) cache
+    -> (B, KV, G, hd) float32."""
+    return torch.softmax(scores, dim=-1) @ v_cache.float().permute(0, 2, 1, 3)
+
+
+def attention_cross_decode(params: dict, x: torch.Tensor, cross_cache: tuple,
+                           cfg: ArchConfig) -> torch.Tensor:
+    """Decode-time cross attention: the query of x (B, 1, d) over the static
+    (k, v) cache made from the encoder output at prefill, scored in float32
+    over every encoder position."""
+    k_cache, v_cache = cross_cache
+    scores = _grouped_scores(_proj(x, params["wq"]), k_cache, cfg)
+    out = _attend_cache(scores, v_cache)
+    return _out(out.reshape(x.shape[0], 1, cfg.n_heads, -1).to(x.dtype), params["wo"])
+
+
+def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor) -> tuple:
+    """The static cross-attention (k, v) cache, (B, Le, KV, hd) each,
+    projected once at prefill."""
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])

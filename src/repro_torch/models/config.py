@@ -4,8 +4,7 @@ the reference's ``models/config.py``: plain arithmetic, no tensors).
 One dataclass covers all six families (dense / moe / ssm / hybrid / encdec /
 vlm / audio); family-specific fields are zero/None when unused.  Exact
 figures for each architecture live in ``repro_torch/configs/<id>.py``.
-The port serves the dense, vlm and moe families; ``param_count`` covers
-all of them.
+The port serves every family.
 """
 
 from __future__ import annotations

@@ -1,0 +1,170 @@
+"""Mamba-1 selective SSM layer (falcon-mamba-7b, jamba's mamba sublayers):
+the serving half of the reference's ``models/mamba.py``.
+
+Structure (Gu & Dao 2023): in_proj -> (x, z); causal depthwise conv (k=4);
+SiLU; data-dependent (dt, B, C); a selective state-space scan over time
+with diagonal A; gate by SiLU(z); out_proj.
+
+Prefill splits time into ``SSM_CHUNK`` blocks, as the reference does.
+Inside a block the linear recurrence h_t = da_t * h_{t-1} + dbx_t is a
+log-depth doubling scan (``_chunk_scan``): step j combines index t with
+t - 2^j by the reference's combinator, so the (B, Q, di, st) expansion
+lives one block at a time; across blocks the (B, di, st) state is carried,
+as the reference's outer ``lax.scan`` carries it.  The doubling order
+rounds differently from XLA's ``associative_scan``, so the state agrees
+with the reference to float32 tolerance, not bit for bit.  A running
+product of ``da`` divided out is never formed: at the reference's init it
+underflows float32 to 0 within about a hundred steps.
+
+Decode keeps the (B, di, st) float32 state and the last k-1 pre-conv
+activations, and advances one token a call.  ``mamba_train`` (the same
+scan without the mask) belongs to the training slice (ROADMAP queue 1
+item 10 (d)).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.params import ParamSpec
+
+SSM_CHUNK = 256  # time chunk: bounds the live (B, Q, di, st) state expansion
+
+
+def mamba_spec(cfg: ArchConfig) -> dict:
+    d, di, st, dtr, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                         cfg.dt_rank, cfg.ssm_conv)
+    return {
+        "in_proj": ParamSpec((d, 2 * di), ("fsdp", "tp")),
+        "conv_w": ParamSpec((k, di), (None, "tp")),
+        "conv_b": ParamSpec((di,), ("tp",), init="zeros"),
+        "x_proj": ParamSpec((di, dtr + 2 * st), ("tp", None)),
+        "dt_proj_w": ParamSpec((dtr, di), (None, "tp")),
+        "dt_proj_b": ParamSpec((di,), ("tp",), init="ones"),
+        "a_log": ParamSpec((di, st), ("tp", None), init="ones"),
+        "d_skip": ParamSpec((di,), ("tp",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("tp", "fsdp")),
+    }
+
+
+def _ssm_inputs(params, xc: torch.Tensor, cfg: ArchConfig, mask=None):
+    """xc: (B, L, di) post-conv activations -> da (B, L, di, st), dbx, c.
+
+    mask: optional (L,) validity; masked steps get dt = 0, so da = 1 and
+    dbx = 0 and the recurrence passes the state through unchanged.
+
+    The casts are the reference's: the projections, ``dt`` and ``dt * b``
+    stay in the activation dtype; ``a``, ``da`` and ``dbx`` are float32."""
+    st, dtr = cfg.ssm_state, cfg.dt_rank
+    proj = xc @ params["x_proj"]
+    dt, b, c = proj.split([dtr, st, st], dim=-1)
+    dt = F.softplus(dt @ params["dt_proj_w"] + params["dt_proj_b"])   # (B,L,di)
+    if mask is not None:
+        dt = dt * mask[None, :, None].to(dt.dtype)
+    a = -torch.exp(params["a_log"].float())                           # (di, st)
+    da = torch.exp(dt[..., None].float() * a)                         # (B,L,di,st)
+    dbx = (dt[..., None] * b[..., None, :]).float() * xc[..., None].float()
+    return da, dbx, c.float()
+
+
+def _conv_train(params, x: torch.Tensor, k: int) -> torch.Tensor:
+    """Causal depthwise conv over time: x (B, L, di)."""
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1]] * params["conv_w"][i] for i in range(k))
+    return out + params["conv_b"]
+
+
+def _chunk_scan(da: torch.Tensor, dbx: torch.Tensor):
+    """Inclusive scan of h_t = da_t * h_{t-1} + dbx_t over axis 1 from
+    h = 0 -> (cumulative da, h), by doubling: at step j every index
+    t >= 2^j takes (a, b)[t - 2^j] as its left operand under the
+    reference's combinator (a_l * a_r, b_l * a_r + b_r).  Two buffers a
+    quantity, the inputs among them: they are overwritten."""
+    a, b = da, dbx
+    a2, b2 = torch.empty_like(a), torch.empty_like(b)
+    q, s = a.shape[1], 1
+    while s < q:
+        a2[:, :s], b2[:, :s] = a[:, :s], b[:, :s]
+        torch.mul(a[:, :-s], a[:, s:], out=a2[:, s:])
+        torch.addcmul(b[:, s:], b[:, :-s], a[:, s:], out=b2[:, s:])
+        a, a2, b, b2 = a2, a, b2, b
+        s *= 2
+    return a, b
+
+
+def _gate_out(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The skip term in float32, the SiLU(z) gate in ``dtype``, out_proj."""
+    y = y + xc.float() * params["d_skip"].float()
+    return (y.to(dtype) * F.silu(z)) @ params["out_proj"]
+
+
+def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig
+                  ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence scan, x (B, L, d) -> (out (B, L, d), decode state:
+    the (B, di, st) SSM state at t = L - 1 and the last k - 1 pre-conv
+    activations).  The chunk is ``min(SSM_CHUNK, L)`` whatever
+    ``cfg.ssm_chunk`` says, as in the reference's prefill; the padded
+    tail's steps get dt = 0.  A prompt shorter than k - 1 has no conv tail
+    and raises ``ValueError`` (the reference fails on it too)."""
+    bsz, l, _ = x.shape
+    k = cfg.ssm_conv
+    if l < k - 1:
+        raise ValueError(f"a mamba prefill needs at least ssm_conv - 1 = {k - 1} "
+                         f"positions for its conv tail, got {l}")
+    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,L,di)
+    xc = F.silu(_conv_train(params, xr, k))
+
+    q = min(SSM_CHUNK, l)
+    n_chunks = -(-l // q)
+    pad = n_chunks * q - l
+    xcp = F.pad(xc, (0, 0, 0, pad)) if pad else xc
+    # padded steps get dt = 0 (state pass-through), so h_last is h at t = l - 1
+    valid = (torch.arange(n_chunks * q, device=x.device) < l).float()
+    h = torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for i in range(n_chunks):
+        da, dbx, c = _ssm_inputs(params, xcp[:, i * q:(i + 1) * q], cfg,
+                                 mask=valid[i * q:(i + 1) * q])
+        cum_a, hs = _chunk_scan(da, dbx)
+        del da, dbx                                  # frees the scan's spare buffers
+        hs = cum_a.mul_(h[:, None]).add_(hs)                          # seed carry
+        ys.append((hs @ c[..., None])[..., 0])                        # (B,Q,di)
+        h = hs[:, -1].clone()
+        del cum_a, hs
+    y = torch.cat(ys, dim=1)[:, :l]
+    out = _gate_out(params, y, xc, z, x.dtype)
+    return out, {"ssm": h, "conv": xr[:, l - (k - 1):].clone()}
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                     device=None, lead: tuple[int, ...] = ()) -> dict:
+    """Zero decode state on ``device`` (default: the card): the SSM state
+    (*lead, B, di, st) in float32 and the conv tail (*lead, B, k-1, di) in
+    ``dtype``; ``lead`` stacks it over layers, as the caches do."""
+    dev = resolve_device(device)
+    return {
+        "ssm": torch.zeros((*lead, batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=dev),
+        "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
+                            device=dev),
+    }
+
+
+def mamba_decode(params: dict, x: torch.Tensor, state: dict, cfg: ArchConfig
+                 ) -> tuple[torch.Tensor, dict]:
+    """One token step. x: (B, 1, d); state: {"ssm", "conv"} -> (out, the
+    new state; the tensors of ``state`` are not written)."""
+    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,1,di)
+    window = torch.cat([state["conv"], xr], dim=1)                    # (B,k,di)
+    xc = torch.einsum("bkd,kd->bd", window, params["conv_w"]) + params["conv_b"]
+    xc = F.silu(xc)[:, None]                                          # (B,1,di)
+    da, dbx, c = _ssm_inputs(params, xc, cfg)
+    h = state["ssm"] * da[:, 0] + dbx[:, 0]                           # (B,di,st)
+    y = (h @ c[:, 0, :, None])[..., 0][:, None]                       # (B,1,di)
+    out = _gate_out(params, y, xc, z, x.dtype)
+    return out, {"ssm": h, "conv": window[:, 1:]}

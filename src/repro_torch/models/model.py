@@ -1,10 +1,15 @@
 """Model assembly for the LM zoo's serving families.
 
-Families served by the port:
+Families:
 
 dense   pre-norm GQA transformer (qwen3*, llama3.2-3b, command-r-35b)
 moe     dense attention + MoE FFN (deepseek-moe-16b, moonshot-v1-16b-a3b);
         ``first_k_dense`` leading layers keep a dense FFN
+ssm     attention-free Mamba-1 stack (falcon-mamba-7b)
+hybrid  Jamba period blocks: per ``attn_period`` layers 1 attention + the
+        rest Mamba; the FFN alternates MLP / MoE (even / odd sublayers)
+encdec  bidirectional encoder + causal decoder with cross attention
+audio   (seamless-m4t-medium; the audio frontend is a stub fed with frames)
 vlm     dense decoder consuming [media embeddings ; text embeddings]
         (internvl2-2b; the ViT frontend is a stub fed with embeddings)
 
@@ -25,28 +30,20 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import embed, embed_spec, mlp_spec, rmsnorm_spec
+from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec, rmsnorm,
+                                       rmsnorm_spec)
 from repro_torch.models.params import (ParamSpec, check_tree, initialize,
-                                       stack_layers)
+                                       stack_layers, tree_map)
 
-SERVED_FAMILIES = ("dense", "vlm", "moe")
-# where each family the port does not serve yet stands in ROADMAP queue 1
-_NOT_YET = {"ssm": "item 10 (b), SSM and hybrid serving",
-            "hybrid": "item 10 (b), SSM and hybrid serving",
-            "encdec": "item 10 (c), encoder-decoder and audio",
-            "audio": "item 10 (c), encoder-decoder and audio"}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family in SERVED_FAMILIES:
-        return
-    if cfg.family in _NOT_YET:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 {_NOT_YET[cfg.family]})")
-    raise ValueError(cfg.family)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 # ===========================================================================
@@ -63,6 +60,33 @@ def _moe_layer_spec(cfg: ArchConfig) -> dict:
             "ln2": rmsnorm_spec(cfg.d_model), "moe": moe_mod.moe_spec(cfg)}
 
 
+def _mamba_layer_spec(cfg: ArchConfig) -> dict:
+    return {"ln": rmsnorm_spec(cfg.d_model), "mamba": mb.mamba_spec(cfg)}
+
+
+def _hybrid_block_spec(cfg: ArchConfig) -> dict:
+    """One Jamba period block: sublayer 0 = attention, 1..p-1 = mamba;
+    the FFN alternates MLP (even sublayers) / MoE (odd sublayers)."""
+    p = cfg.attn_period
+    return {
+        "attn": {"ln": rmsnorm_spec(cfg.d_model), "attn": attn.attention_spec(cfg)},
+        "mamba": stack_layers(p - 1, _mamba_layer_spec(cfg)),
+        "mlp": stack_layers(p // 2, {"ln": rmsnorm_spec(cfg.d_model),
+                                     "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}),
+        "moe": stack_layers(p // 2, {"ln": rmsnorm_spec(cfg.d_model),
+                                     "moe": moe_mod.moe_spec(cfg)}),
+    }
+
+
+def _encdec_layer_specs(cfg: ArchConfig) -> tuple[dict, dict]:
+    enc = _dense_layer_spec(cfg)
+    dec = {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attention_spec(cfg),
+           "ln_x": rmsnorm_spec(cfg.d_model),
+           "cross": attn.attention_spec(cfg, cross=True),
+           "ln2": rmsnorm_spec(cfg.d_model), "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
+    return enc, dec
+
+
 def model_spec(cfg: ArchConfig) -> dict:
     check_family(cfg)
     spec: dict[str, Any] = {
@@ -71,14 +95,28 @@ def model_spec(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         spec["unembed"] = ParamSpec((cfg.d_model, cfg.vocab), ("fsdp", "tp"))
-    if cfg.family in ("dense", "vlm"):
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
         spec["layers"] = stack_layers(cfg.n_layers, _dense_layer_spec(cfg))
-    else:
+    elif fam == "moe":
         if cfg.first_k_dense:
             spec["dense_layers"] = stack_layers(cfg.first_k_dense,
                                                 _dense_layer_spec(cfg))
         spec["layers"] = stack_layers(cfg.n_layers - cfg.first_k_dense,
                                       _moe_layer_spec(cfg))
+    elif fam == "ssm":
+        spec["layers"] = stack_layers(cfg.n_layers, _mamba_layer_spec(cfg))
+    elif fam == "hybrid":
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                             f"period blocks of {cfg.attn_period}")
+        spec["blocks"] = stack_layers(cfg.n_layers // cfg.attn_period,
+                                      _hybrid_block_spec(cfg))
+    else:                                   # encdec, audio
+        enc, dec = _encdec_layer_specs(cfg)
+        spec["enc_layers"] = stack_layers(cfg.enc_layers, enc)
+        spec["enc_norm"] = rmsnorm_spec(cfg.d_model)
+        spec["layers"] = stack_layers(cfg.n_layers, dec)
     return spec
 
 
@@ -92,6 +130,18 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.family == "vlm" and "media" in batch:
         x = torch.cat([batch["media"].to(x.dtype), x], dim=1)
     return x
+
+
+def encoder_forward(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Bidirectional encoder over (stub) frame embeddings (B, Le, d), then
+    ``enc_norm``."""
+    h = frames
+    for i in range(cfg.enc_layers):
+        lp = tree_map(lambda a, i=i: a[i], params["enc_layers"])
+        h = h + attn.attention_train(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                                     cfg, causal=False)
+        h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+    return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
 # ===========================================================================

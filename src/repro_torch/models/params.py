@@ -17,11 +17,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-# a leaf larger than this is drawn in slices of its first dimension of at
-# most this many elements (at least one row: one layer of a stacked leaf), so
-# the float32 draw stays small: the largest leaf served, deepseek-moe-16b's
-# (27, 64, 2048, 1408) expert weights, would need a 19.9 GB float32
-# temporary drawn whole
+# a leaf larger than this is drawn in slices of at most this many elements
+# (at least one row of its trailing dimensions), so the float32 draw stays
+# small: deepseek-moe-16b's (27, 64, 2048, 1408) expert weights would need a
+# 19.9 GB float32 temporary drawn whole, and a one-block jamba's
+# (1, 4, 4, 8192, 24576) MoE weights 12.9 GB drawn a block at a time
 SLICE_ELEMS = 1 << 24
 
 
@@ -96,10 +96,15 @@ def initialize(generator: torch.Generator, tree: Any, dtype: torch.dtype,
         if math.prod(s.shape) <= SLICE_ELEMS or len(s.shape) < 2:
             return draw(s.shape, scale)
         out = torch.empty(s.shape, dtype=dtype, device=device)
-        rows = max(1, SLICE_ELEMS // math.prod(s.shape[1:]))
-        for i in range(0, s.shape[0], rows):
-            n = min(rows, s.shape[0] - i)
-            out[i:i + n] = draw((n, *s.shape[1:]), scale)
+        # the fewest trailing dims of at most SLICE_ELEMS elements (the last
+        # one at least) make a row; the leading dims flatten into rows
+        lead = next(j for j in range(1, len(s.shape))
+                    if math.prod(s.shape[j:]) <= SLICE_ELEMS or j == len(s.shape) - 1)
+        flat = out.view(-1, *s.shape[lead:])
+        rows = max(1, SLICE_ELEMS // math.prod(s.shape[lead:]))
+        for i in range(0, flat.shape[0], rows):
+            n = min(rows, flat.shape[0] - i)
+            flat[i:i + n] = draw((n, *s.shape[lead:]), scale)
         return out
 
     return tree_map(init_one, tree)

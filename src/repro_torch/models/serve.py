@@ -1,12 +1,20 @@
-"""Serving paths: prefill (build the KV caches) and single-token decode.
+"""Serving paths: prefill (build the caches) and single-token decode.
 
 Cache layouts (stacked over layers, as the reference's):
 
   dense/vlm : {"k","v"}           (n_layers, B, S, KV, hd)
   moe       : {"dense": {...}, "moe": {...}} per sub-stack
+  ssm       : {"ssm", "conv"}     (n_layers, B, di, st) float32 /
+                                  (n_layers, B, k-1, di)
+  hybrid    : {"k","v"} (n_blocks, B, S, KV, hd) for each period block's
+              attention sublayer + {"ssm","conv"} (n_blocks, p-1, B, ...)
+              for its mamba sublayers
+  encdec    : {"k","v"} decoder self-attention (n_layers, B, S, KV, hd) +
+  audio       {"ck","cv"} static cross caches (n_layers, B, enc_len, KV, hd)
 
 Both functions run under ``torch.inference_mode()``.  ``decode_step``
-writes the new token's K/V into the caches in place and returns them.
+writes the new token's K/V and the new SSM and conv states into the
+caches in place and returns them; the cross caches are left as they are.
 """
 
 from __future__ import annotations
@@ -15,10 +23,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
-from repro_torch.models.model import check_family, embed_inputs
+from repro_torch.models.model import check_family, embed_inputs, encoder_forward
 from repro_torch.models.params import flatten, tree_map
 
 
@@ -32,22 +41,32 @@ def _kv_struct(cfg: ArchConfig, n: int, batch: int, seq: int, dtype, device):
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype: torch.dtype,
-                device=None) -> dict:
-    """Zero caches of length ``seq`` on ``device`` (default: the card;
-    ``"meta"`` allocates nothing)."""
+                device=None, enc_len: int = 0) -> dict:
+    """Zero caches of length ``seq`` (cross caches of ``enc_len``) on
+    ``device`` (default: the card; ``"meta"`` allocates nothing)."""
     check_family(cfg)
     dev = resolve_device(device)
 
-    def kv(n):
-        return {"k": _kv_struct(cfg, n, batch, seq, dtype, dev),
-                "v": _kv_struct(cfg, n, batch, seq, dtype, dev)}
+    def kv(n, seq=seq, names=("k", "v")):
+        return {name: _kv_struct(cfg, n, batch, seq, dtype, dev) for name in names}
 
-    if cfg.family in ("dense", "vlm"):
+    def mamba(*lead):
+        return mb.mamba_init_state(cfg, batch, dtype, dev, lead)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
         return kv(cfg.n_layers)
-    out = {"moe": kv(cfg.n_layers - cfg.first_k_dense)}
-    if cfg.first_k_dense:
-        out["dense"] = kv(cfg.first_k_dense)
-    return out
+    if fam == "moe":
+        out = {"moe": kv(cfg.n_layers - cfg.first_k_dense)}
+        if cfg.first_k_dense:
+            out["dense"] = kv(cfg.first_k_dense)
+        return out
+    if fam == "ssm":
+        return mamba(cfg.n_layers)
+    if fam == "hybrid":
+        nb = cfg.n_layers // cfg.attn_period
+        return {**kv(nb), **mamba(nb, cfg.attn_period - 1)}
+    return {**kv(cfg.n_layers), **kv(cfg.n_layers, enc_len, ("ck", "cv"))}
 
 
 def _pad_cache(k: torch.Tensor, v: torch.Tensor, seq: int):
@@ -65,9 +84,9 @@ def _layers(stacked: dict) -> list[dict]:
     return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
 
 
-def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig, ln: str = "ln2") -> torch.Tensor:
     """The layer's FFN half: a dense MLP or the MoE layer, with its residual."""
-    hn = rmsnorm(h, lp["ln2"], cfg.norm_eps)
+    hn = rmsnorm(h, lp[ln], cfg.norm_eps)
     if "mlp" in lp:
         return h + mlp(lp["mlp"], hn)
     out, _ = moe_mod.moe_layer(lp["moe"], hn, cfg)
@@ -81,11 +100,39 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _sub_stacks(cfg: ArchConfig) -> list[tuple[str | None, str]]:
-    """(cache key, params key) of each layer stack, in the order they run;
-    a dense or vlm model has one stack and flat caches."""
+    """(cache key, params key) of each attention layer stack of a dense,
+    vlm or moe model, in the order they run; a dense or vlm model has one
+    stack and flat caches."""
     if cfg.family in ("dense", "vlm"):
         return [(None, "layers")]
     return ([("dense", "dense_layers")] if cfg.first_k_dense else []) + [("moe", "layers")]
+
+
+def _hybrid_block(bp: dict, h: torch.Tensor, cfg: ArchConfig, attention, mamba
+                  ) -> torch.Tensor:
+    """One Jamba period block: sublayer 0 is ``attention(params, hn)``,
+    sublayer j > 0 is ``mamba(j - 1, params, hn)`` (each returns what is
+    added to the residual), and each sublayer is followed by the next MLP
+    at even j and the next MoE at odd j."""
+    mambas, mlps, moes = _layers(bp["mamba"]), _layers(bp["mlp"]), _layers(bp["moe"])
+    for j in range(cfg.attn_period):
+        if j == 0:
+            sub = bp["attn"]
+            h = h + attention(sub["attn"], rmsnorm(h, sub["ln"], cfg.norm_eps))
+        else:
+            sub = mambas[j - 1]
+            h = h + mamba(j - 1, sub["mamba"], rmsnorm(h, sub["ln"], cfg.norm_eps))
+        h = _ffn(moes[j // 2] if j % 2 else mlps[j // 2], h, cfg, ln="ln")
+    return h
+
+
+def _mamba_decode(p: dict, hn: torch.Tensor, state: dict, cfg: ArchConfig):
+    """A mamba sublayer's decode step, its ``state`` tensors (views of the
+    caches) written in place; returns what is added to the residual."""
+    out, new = mb.mamba_decode(p, hn, state, cfg)
+    state["ssm"].copy_(new["ssm"])
+    state["conv"].copy_(new["conv"])
+    return out
 
 
 # ===========================================================================
@@ -97,25 +144,67 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
             cache_seq: int) -> tuple[torch.Tensor, dict]:
     """Run the full prompt, return (last-position logits (B, V), caches).
 
-    batch: tokens (B, L) [, media (B, M, d)]."""
+    batch: tokens (B, L) [, media (B, M, d) | frames (B, Le, d)]."""
     check_family(cfg)
     dtype = getattr(torch, cfg.dtype)
     x = embed_inputs(params, batch, cfg)
+    fam = cfg.family
     caches: dict = {}
-    for cache_key, params_key in _sub_stacks(cfg):
-        ks, vs = [], []
-        for lp in _layers(params[params_key]):
-            a, (k, v) = attn.attention_prefill(
-                lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg)
-            x = _ffn(lp, x + a, cfg)
-            kp, vp = _pad_cache(k, v, cache_seq)
-            ks.append(kp.to(dtype))
-            vs.append(vp.to(dtype))
-        kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        if cache_key is None:
-            caches = kv
-        else:
-            caches[cache_key] = kv
+
+    def attend(p, hn, ks, vs):
+        a, (k, v) = attn.attention_prefill(p, hn, cfg)
+        kp, vp = _pad_cache(k, v, cache_seq)
+        ks.append(kp.to(dtype))
+        vs.append(vp.to(dtype))
+        return a
+
+    if fam in ("dense", "vlm", "moe"):
+        for cache_key, params_key in _sub_stacks(cfg):
+            ks, vs = [], []
+            for lp in _layers(params[params_key]):
+                x = x + attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ks, vs)
+                x = _ffn(lp, x, cfg)
+            kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            if cache_key is None:
+                caches = kv
+            else:
+                caches[cache_key] = kv
+    elif fam == "ssm":
+        ssm, conv = [], []
+        for lp in _layers(params["layers"]):
+            out, st = mb.mamba_prefill(lp["mamba"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + out
+            ssm.append(st["ssm"])
+            conv.append(st["conv"].to(dtype))
+        caches = {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+    elif fam == "hybrid":
+        ks, vs, ssm, conv = [], [], [], []
+        for bp in _layers(params["blocks"]):
+            states = []
+
+            def mamba(j, p, hn, states=states):
+                out, st = mb.mamba_prefill(p, hn, cfg)
+                states.append(st)
+                return out
+
+            x = _hybrid_block(bp, x, cfg, lambda p, hn: attend(p, hn, ks, vs), mamba)
+            ssm.append(torch.stack([st["ssm"] for st in states]))
+            conv.append(torch.stack([st["conv"] for st in states]).to(dtype))
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs),
+                  "ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+    else:                                           # encdec, audio
+        enc_out = encoder_forward(params, batch["frames"].to(dtype), cfg)
+        ks, vs, cks, cvs = [], [], [], []
+        for lp in _layers(params["layers"]):
+            x = x + attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ks, vs)
+            x = x + attn.attention_cross(lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
+                                         enc_out, cfg)
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            ck, cv = attn.cross_cache_from_encoder(lp["cross"], enc_out)
+            cks.append(ck.to(dtype))
+            cvs.append(cv.to(dtype))
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs),
+                  "ck": torch.stack(cks), "cv": torch.stack(cvs)}
     return _logits(params, x[:, -1], cfg), caches
 
 
@@ -130,11 +219,33 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, pos: int,
     in place)."""
     check_family(cfg)
     x = embed(params["embed"], tokens)
-    for cache_key, params_key in _sub_stacks(cfg):
-        kv = caches if cache_key is None else caches[cache_key]
-        for i, lp in enumerate(_layers(params[params_key])):
-            a, _ = attn.attention_decode(
-                lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                (kv["k"][i], kv["v"][i]), pos, cfg)
-            x = _ffn(lp, x + a, cfg)
+    fam = cfg.family
+
+    def attend(p, hn, kv, i):
+        a, _ = attn.attention_decode(p, hn, (kv["k"][i], kv["v"][i]), pos, cfg)
+        return a
+
+    if fam in ("dense", "vlm", "moe"):
+        for cache_key, params_key in _sub_stacks(cfg):
+            kv = caches if cache_key is None else caches[cache_key]
+            for i, lp in enumerate(_layers(params[params_key])):
+                x = x + attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), kv, i)
+                x = _ffn(lp, x, cfg)
+    elif fam == "ssm":
+        for i, lp in enumerate(_layers(params["layers"])):
+            state = {"ssm": caches["ssm"][i], "conv": caches["conv"][i]}
+            x = x + _mamba_decode(lp["mamba"], rmsnorm(x, lp["ln"], cfg.norm_eps), state, cfg)
+    elif fam == "hybrid":
+        for b, bp in enumerate(_layers(params["blocks"])):
+            x = _hybrid_block(
+                bp, x, cfg, lambda p, hn, b=b: attend(p, hn, caches, b),
+                lambda j, p, hn, b=b: _mamba_decode(
+                    p, hn, {"ssm": caches["ssm"][b, j], "conv": caches["conv"][b, j]}, cfg))
+    else:                                           # encdec, audio
+        for i, lp in enumerate(_layers(params["layers"])):
+            x = x + attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), caches, i)
+            x = x + attn.attention_cross_decode(
+                lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
+                (caches["ck"][i], caches["cv"][i]), cfg)
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
     return _logits(params, x[:, 0], cfg), caches

@@ -1,7 +1,8 @@
 """The port's LM zoo modules held against the JAX package on the CPU:
 configs and parameter counts, parameter specs and initialisation, the
-layers, chunked and decode attention, the MoE router and both dispatches,
-and the weight carry (``convert.lm_params_from_reference``).
+layers, chunked and decode attention, cross attention and the encoder, the
+MoE router and both dispatches, and the weight carry
+(``convert.lm_params_from_reference``).
 
 Inputs are drawn with numpy from a seed and fed to both packages; weights
 are the reference's (``P.initialize(jax.random.PRNGKey(0), ...)``) carried
@@ -10,7 +11,8 @@ across as numpy arrays.
 Tolerances (float32 on both sides): configs, counts, shapes, routed
 expert ids and dropped tokens exactly equal; ``rmsnorm``, ``apply_rope``
 and ``mlp`` ``atol=1e-6``; ``_chunked_attention`` and the attention entry
-points ``atol=2e-5``; ``moe_layer`` ``rtol=2e-4, atol=2e-5``.
+points ``atol=2e-5``; ``encoder_forward`` ``rtol=1e-4, atol=1e-4``;
+``moe_layer`` ``rtol=2e-4, atol=2e-5``.
 """
 
 import dataclasses
@@ -30,18 +32,16 @@ from repro.models import layers as j_layers
 from repro.models import model as j_model
 from repro.models import moe as j_moe
 from repro.models import params as j_params
+from repro.models import serve as j_serve
 from repro.runtime.sharding import make_ctx
 from repro_torch import convert, device
 from repro_torch.configs import hdc_ieeg, registry
 from repro_torch.data import lm
-from repro_torch.models import attention, config, layers, model, moe, params, serve
+from repro_torch.models import attention, config, layers, mamba, model, moe, params, serve
 
 jax.config.update("jax_platform_name", "cpu")
 
 CTX = make_ctx(None)
-SERVED = tuple(a for a in registry.ARCH_IDS
-               if registry.get_config(a).family in model.SERVED_FAMILIES)
-UNSERVED = tuple(a for a in registry.ARCH_IDS if a not in SERVED)
 
 
 def _t(a) -> torch.Tensor:
@@ -74,8 +74,8 @@ def _weights(spec, seed: int = 0):
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_config_and_param_count_match_reference(arch):
     """Every field of every config (full and reduced) and ``param_count``
-    equal the reference's; for a served family ``count_params`` of the
-    spec too, and the spec's key paths, shapes and init kinds."""
+    equal the reference's, and so do ``count_params`` of the spec and the
+    spec's key paths, shapes and init kinds."""
     jc, tc = j_registry.get_config(arch), registry.get_config(arch)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert dataclasses.asdict(tc.reduced()) == dataclasses.asdict(jc.reduced())
@@ -84,8 +84,6 @@ def test_config_and_param_count_match_reference(arch):
         assert (c_t.resolved_head_dim, c_t.d_inner, c_t.dt_rank, c_t.is_moe,
                 c_t.sub_quadratic) == (c_j.resolved_head_dim, c_j.d_inner,
                                        c_j.dt_rank, c_j.is_moe, c_j.sub_quadratic)
-    if arch not in SERVED:
-        return
     for c_t, c_j in ((tc, jc), (tc.reduced(), jc.reduced())):
         spec_t, spec_j = model.model_spec(c_t), j_model.model_spec(c_j)
         assert params.count_params(spec_t) == j_params.count_params(spec_j)
@@ -98,19 +96,48 @@ def test_config_and_param_count_match_reference(arch):
             assert dataclasses.asdict(s) == dataclasses.asdict(flat_j[k]), k
 
 
-@pytest.mark.parametrize("arch", UNSERVED)
-def test_unserved_family_raises(arch):
-    """The SSM, hybrid and audio configs load, but building their model,
-    caches or input stand-ins raises and names the ROADMAP item."""
-    cfg = registry.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        model.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        model.LanguageModel.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        serve.init_caches(cfg, 1, 8, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        lm.input_specs(cfg, lm.SHAPES["decode_32k"])
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+def test_every_config_builds_at_reduced(arch):
+    """At ``reduced()``: ``LanguageModel.init`` holds the spec's leaves,
+    ``init_caches`` has the layout (key paths, shapes, dtypes) of the
+    reference's and of the port's own prefill caches, and a decode step
+    runs on them; the decode input stand-ins match the reference's."""
+    tc, jc = registry.get_config(arch).reduced(), j_registry.get_config(arch).reduced()
+    m = model.LanguageModel.init(torch.Generator().manual_seed(0), tc, device="cpu")
+    assert sorted(m.state_dict()) == sorted(params.flatten(model.model_spec(tc)))
+    empty = params.flatten(serve.init_caches(tc, 2, 24, torch.float32, device="cpu",
+                                             enc_len=16))
+    want = {jax.tree_util.keystr(p, simple=True, separator="."): v
+            for p, v in jax.tree_util.tree_flatten_with_path(
+                j_serve.init_caches(jc, 2, 24, jnp.float32, enc_len=16))[0]}
+    assert sorted(empty) == sorted(want)
+    for k, v in empty.items():
+        assert tuple(v.shape) == want[k].shape and str(v.dtype)[6:] == str(want[k].dtype), k
+    shape = lm.ShapeSpec("s", 20, 2, "prefill")
+    batch = lm.synth_batch(torch.Generator().manual_seed(1), tc, shape)
+    _, caches = m.prefill(batch, 24)
+    if tc.family in ("encdec", "audio"):      # the cross caches follow the frames
+        assert caches["ck"].shape[2] == 20
+        empty.update(ck=caches["ck"], cv=caches["cv"])
+    for k, v in params.flatten(caches).items():
+        assert v.shape == empty[k].shape and v.dtype == empty[k].dtype, k
+    tl = batch["tokens"].shape[1] + (tc.num_media_tokens if tc.family == "vlm" else 0)
+    logits, _ = m.decode_step(batch["tokens"][:, -1:], caches, tl)
+    assert tuple(logits.shape) == (2, tc.vocab) and bool(torch.isfinite(logits).all())
+    got = params.flatten(lm.input_specs(tc, lm.SHAPES["decode_32k"]))
+    want = {jax.tree_util.keystr(p, simple=True, separator="."): v
+            for p, v in jax.tree_util.tree_flatten_with_path(
+                j_lm.input_specs(jc, j_lm.SHAPES["decode_32k"]))[0]}
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+
+
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(_tcfg("qwen3-0.6b"), family="rnn")
+    for call in (lambda: model.model_spec(cfg),
+                 lambda: serve.init_caches(cfg, 1, 8, torch.float32, device="cpu")):
+        with pytest.raises(ValueError, match="unknown family 'rnn'"):
+            call()
 
 
 def test_shape_applicability_matches_reference():
@@ -133,7 +160,11 @@ def test_hdc_ieeg_config_matches_reference():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,kind", [("qwen3-0.6b", "train"), ("internvl2-2b", "prefill"),
-                                       ("deepseek-moe-16b", "decode")])
+                                       ("deepseek-moe-16b", "decode"),
+                                       ("falcon-mamba-7b", "decode"),
+                                       ("jamba-1.5-large-398b", "decode"),
+                                       ("seamless-m4t-medium", "prefill"),
+                                       ("seamless-m4t-medium", "decode")])
 def test_input_specs_and_synth_batch_shapes(arch, kind):
     """``input_specs`` (meta tensors) has the reference's shapes and
     dtypes; ``synth_batch`` draws those shapes on the generator's device;
@@ -158,6 +189,11 @@ def test_input_specs_and_synth_batch_shapes(arch, kind):
     assert int(batch["tokens"].max()) < small.vocab
     if small.family == "vlm":
         assert tuple(batch["media"].shape) == (2, small.num_media_tokens, small.d_model)
+    if small.family == "audio":
+        if kind == "decode":
+            assert batch["caches"]["ck"].shape[2] == lm.enc_len(24) == 16
+        else:
+            assert tuple(batch["frames"].shape) == (2, 24, small.d_model)
     again = lm.batch_for_step(small, sshape, 5, device="cpu")
     assert torch.equal(again["tokens"], lm.batch_for_step(small, sshape, 5, device="cpu")["tokens"])
 
@@ -213,8 +249,22 @@ def test_language_model_holds_the_spec_paths():
     assert m.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("fault", ["missing", "extra", "shape"])
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape", "hybrid_stack"])
 def test_convert_refuses_a_wrong_tree(fault):
+    """A wrong leaf is named; ``hybrid_stack``: jamba's tree, whose mamba
+    leaves are stacked twice (blocks, then sublayers), is carried whole and
+    refused with one sublayer too few."""
+    if fault == "hybrid_stack":
+        cfg = _tcfg("jamba-1.5-large-398b")
+        tree, _ = _weights(j_model.model_spec(_jcfg("jamba-1.5-large-398b")))
+        m = convert.lm_params_from_reference(cfg, tree, device="cpu")
+        np.testing.assert_array_equal(_np(m.blocks.mamba.mamba.a_log),
+                                      tree["blocks"]["mamba"]["mamba"]["a_log"])
+        tree["blocks"]["mamba"]["mamba"]["in_proj"] = tree["blocks"]["mamba"]["mamba"][
+            "in_proj"][:, 1:]
+        with pytest.raises(ValueError, match="leaf blocks.mamba.mamba.in_proj has shape"):
+            convert.lm_params_from_reference(cfg, tree, device="cpu")
+        return
     cfg = _tcfg("deepseek-moe-16b")
     tree, _ = _weights(j_model.model_spec(_jcfg("deepseek-moe-16b")))
     if fault == "missing":
@@ -240,6 +290,7 @@ def test_lm_entry_points_without_a_card_raise(monkeypatch):
     for call in (lambda: model.LanguageModel.init(torch.Generator(), cfg),
                  lambda: convert.lm_params_from_reference(cfg, tree),
                  lambda: serve.init_caches(cfg, 1, 8, torch.float32),
+                 lambda: mamba.mamba_init_state(_tcfg("falcon-mamba-7b"), 1, torch.float32),
                  lambda: lm.batch_for_step(cfg, shape, 0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -276,6 +327,25 @@ def test_layer_ops_match_reference(op):
         got = layers.mlp({k: _t(v) for k, v in w.items()}, _t(x))
         want = j_layers.mlp(w, x)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_zeroes_a_row_whose_mean_square_overflows(dtype):
+    """A finite row whose float32 square overflows (|x| above about 1.8e19)
+    normalises to zeros in both packages, a row just below it to the same
+    values: the cause of the all-zero logits of a one-block jamba drawn at
+    the reference's init at full width."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 64), np.float32)
+    x *= np.array([[1e30], [1e18], [1.0]], np.float32)
+    s = rng.standard_normal(64, np.float32)
+    got = layers.rmsnorm(_t(x).to(getattr(torch, dtype)), _t(s).to(getattr(torch, dtype)))
+    want = j_layers.rmsnorm(jnp.asarray(x, dtype), jnp.asarray(s, dtype))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(_np(got.float())[0], 0.0)
+    np.testing.assert_array_equal(np.asarray(want.astype(jnp.float32))[0], 0.0)
+    np.testing.assert_allclose(_np(got.float()), np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2 if dtype == "bfloat16" else 1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +398,45 @@ def test_attention_entry_points_match_reference(arch):
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0, atol=2e-5)
     with pytest.raises(IndexError, match="outside the cache"):
         attention.attention_decode(tw, _t(x1), (_t(kc), _t(vc)), s, tc)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen3-0.6b"])
+def test_cross_attention_matches_reference(arch):
+    """``attention_spec(cross=True)`` (no qk-norm, even for qwen3),
+    ``attention_cross`` over 29 encoder positions (several KV chunks, the
+    last padded), ``cross_cache_from_encoder`` and
+    ``attention_cross_decode`` over that cache."""
+    jc, tc = _jcfg(arch, attn_kv_chunk=8), _tcfg(arch, attn_kv_chunk=8)
+    spec = attention.attention_spec(tc, cross=True)
+    assert sorted(spec) == sorted(j_attn.attention_spec(jc, cross=True)) == [
+        "wk", "wo", "wq", "wv"]
+    jw, tw = _weights(j_attn.attention_spec(jc, cross=True), seed=6)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 11, jc.d_model), np.float32)
+    enc = rng.standard_normal((2, 29, jc.d_model), np.float32)
+    got = attention.attention_cross(tw, _t(x), _t(enc), tc)
+    want = j_attn.attention_cross(jw, x, enc, jc, CTX)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=2e-5)
+    gk, gv = attention.cross_cache_from_encoder(tw, _t(enc))
+    wk, wv = j_attn.cross_cache_from_encoder(jw, enc)
+    for g, w in ((gk, wk), (gv, wv)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0, atol=2e-5)
+    x1 = rng.standard_normal((2, 1, jc.d_model), np.float32)
+    got = attention.attention_cross_decode(tw, _t(x1), (gk, gv), tc)
+    want = j_attn.attention_cross_decode(jw, x1, (wk, wv), jc, CTX)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=2e-5)
+
+
+def test_encoder_forward_matches_reference():
+    """The bidirectional encoder (RoPE on, no causal mask) over 29 frames,
+    then ``enc_norm``; the port's weights carried from the reference's."""
+    jc, tc = _jcfg("seamless-m4t-medium", attn_kv_chunk=8), _tcfg("seamless-m4t-medium",
+                                                                  attn_kv_chunk=8)
+    jw, tw = _weights(j_model.model_spec(jc), seed=7)
+    frames = np.random.default_rng(7).standard_normal((2, 29, jc.d_model), np.float32)
+    got = model.encoder_forward(tw, _t(frames), tc)
+    want = j_model.encoder_forward(jw, frames, jc, CTX)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
