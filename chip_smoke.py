@@ -133,7 +133,24 @@ Phases (one line each, any failure exits non-zero):
    consistency within 5e-2 (falcon: 0.35; the jamba cut's logits are all
    zero, and the run checks that its final rmsnorm's mean square
    overflows); and ``launch/serve.py --arch`` (qwen3-0.6b,
-   seamless-m4t-medium) in subprocesses.
+   seamless-m4t-medium) in subprocesses;
+13. LM training (no kernel of its own: autograd through the plain modules,
+   as the reference derives its backward with ``jax.grad``): in float32
+   (TF32 off) at ``reduced()``, one config of each of the seven families
+   (seamless also as ``encdec``; jamba and seamless on weights rescaled to
+   std 1/sqrt(d_model), ill-conditioned at the reference's init), one CPU
+   draw copied to the card, two ``make_train_step`` steps on the CPU and
+   on the card (losses within 1e-5, grad norms 1e-4 then 1e-3, every
+   parameter within 1e-2 of its leaf's largest update, routed ids equal
+   but for phase 12's near-ties); qwen3-0.6b whole in bf16 (remat, float32
+   AdamW state), 20 steps on one batch of 4 x 512 (every loss finite, the
+   last below the first; step time, tokens/s, peak memory, one profiled
+   step's busy and idle share and largest kernels, the bound); the
+   selective scan's backward at full width (falcon-mamba-7b cut to 2
+   layers, batch 1 x 512: loss and grad norm finite, time, peak memory);
+   and ``launch/train.py`` in subprocesses: reduced qwen3 straight and
+   with ``--fail-at 5`` (a restart from the step-4 checkpoint, the final
+   losses within 1e-5), qwen3-0.6b whole for 5 steps.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -2497,11 +2514,12 @@ def deploy_variants(tag: str, sparse: dict, dense: dict) -> dict:
     return out
 
 
-def _cli(args: list, env: dict, what: str, timeout: int = CLI_TIMEOUT) -> tuple[str, float]:
-    """Run ``python -m repro_torch.launch.serve`` with ``args``; fails the
-    phase on a non-zero exit.  Returns (stdout and stderr, seconds)."""
+def _cli(args: list, env: dict, what: str, timeout: int = CLI_TIMEOUT,
+         module: str = "repro_torch.launch.serve") -> tuple[str, float]:
+    """Run ``python -m <module>`` with ``args``; fails the phase on a
+    non-zero exit.  Returns (stdout and stderr, seconds)."""
     t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+    p = subprocess.run([sys.executable, "-m", module, *args],
                        env=env, cwd=str(ROOT), capture_output=True, text=True,
                        timeout=timeout)
     secs = time.perf_counter() - t0
@@ -2850,6 +2868,27 @@ class _NormInputLog:
         return False
 
 
+def _route_flips(what: str, card: list, cpu: list, tie: tuple[float, float]):
+    """Hold the card's routed expert ids (``_RouteLog`` calls) against the
+    CPU's: an id may differ only where the CPU token's top-k margin is
+    below ``tie[0]``, on at most ``tie[1]`` of the routed slots.  Returns
+    (routed slots, slots that differ, the largest margin where one does)."""
+    expect(len(card) == len(cpu), f"{what}: route calls differ")
+    tie_margin, tie_share = tie
+    slots = flips = 0
+    flip_margin = 0.0
+    for (ids_a, _), (ids_b, margin) in zip(card, cpu):
+        differ = (ids_a != ids_b).any(dim=1)
+        if differ.any():
+            flip_margin = max(flip_margin, float(margin[differ].max()))
+        slots += ids_b.numel()
+        flips += int((ids_a != ids_b).sum())
+    expect(flip_margin < tie_margin and flips <= tie_share * max(slots, 1),
+           f"{what}: {flips} of {slots} routed slots differ (allowed {tie_share:.0e} of "
+           f"them), at top-k margins up to {flip_margin:.3g} (allowed below {tie_margin})")
+    return slots, flips, flip_margin
+
+
 def _greedy(model, batch: dict, pos0: int, steps: int, feed=None) -> dict:
     """Prefill, then ``steps`` decode steps from position ``pos0``: each
     step decodes the greedy token, or ``feed``'s (B, steps + 1) tokens when
@@ -2952,19 +2991,8 @@ def lm_card_vs_cpu(tag: str, arch: str) -> dict:
         expect(bool(torch.isfinite(x).all()) and rel <= (rel_tol or LM_CHECK_TOL),
                f"{arch}: cache {k} differs by {rel:.3g} of its largest value")
         cache_err = max(cache_err, rel)
-    expect(len(routes["card"]) == len(routes["cpu"]), f"{arch}: route calls differ")
-    tie_margin, tie_share = settings.tie
-    slots = flips = 0
-    flip_margin = 0.0             # the largest top-k margin where a routed id differs
-    for (ids_a, _), (ids_b, margin) in zip(routes["card"], routes["cpu"]):
-        differ = (ids_a != ids_b).any(dim=1)
-        if differ.any():
-            flip_margin = max(flip_margin, float(margin[differ].max()))
-        slots += ids_b.numel()
-        flips += int((ids_a != ids_b).sum())
-    expect(flip_margin < tie_margin and flips <= tie_share * max(slots, 1),
-           f"{arch}: {flips} of {slots} routed slots differ (allowed {tie_share:.0e} of "
-           f"them), at top-k margins up to {flip_margin:.3g} (allowed below {tie_margin})")
+    tie_margin = settings.tie[0]
+    slots, flips, flip_margin = _route_flips(arch, routes["card"], routes["cpu"], settings.tie)
     cons, _ = _consistency(card.params(), {k: v.cuda() for k, v in batch.items()}, cfg, prompt)
     expect(cons <= LM_CHECK_CONSISTENCY, f"{arch}: float32 prefill/decode consistency "
            f"{cons:.3g} on the card, above {LM_CHECK_CONSISTENCY}")
@@ -3237,6 +3265,331 @@ def lm_phase(tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: LM training
+# ---------------------------------------------------------------------------
+
+# (a) the card against the CPU: float32, TF32 off, reduced(attn_kv_chunk=8),
+# one CPU draw copied to the card, the same batch, two train steps.  The
+# tolerances are the CPU tests' (tests/test_torch_lm_train.py): the losses
+# rtol 1e-5, the grad norms 1e-4 (1e-3 at the second step, taken at
+# parameters that differ already), each parameter within 1e-2 of its leaf's
+# largest update, Adam's eps at 1e-4 (at 1e-8 a rounding of a gradient near
+# zero becomes a sizeable share of an update).  jamba (one block at std 1)
+# and seamless (attention near an argmax) are ill-conditioned in float32 at
+# the reference's init scale (ROADMAP queue 3): as the CPU tests do, their
+# normal-init leaves are rescaled to std 1/sqrt(d_model) before both copies
+# take them.  Routed expert ids are held with phase 12's tie rule.
+TRAIN_CHECK = (("qwen3-0.6b", None), ("internvl2-2b", None), ("deepseek-moe-16b", None),
+               ("falcon-mamba-7b", None), ("jamba-1.5-large-398b", None),
+               ("seamless-m4t-medium", None), ("seamless-m4t-medium", "encdec"))
+TRAIN_RESCALED = ("jamba-1.5-large-398b", "seamless-m4t-medium")
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, TRAIN_CHECK_FRAMES = 2, 24, 40
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STEP_TOL = 1e-5, 1e-4, 1e-2
+TRAIN_CHECK_OPT = dict(warmup_steps=1, total_steps=10, eps=1e-4)
+# (b) full width: qwen3-0.6b whole in bf16 (remat on, float32 AdamW state),
+# TRAIN_STEPS steps on one repeated batch, the launcher's schedule
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-0.6b", 4, 512, 20
+# (c) the selective scan's backward at full width: falcon-mamba-7b cut to
+# two layers, batch 1 x 512 (two scan chunks)
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ = "falcon-mamba-7b", 2, 512
+# (d) the launcher in subprocesses: reduced qwen3 straight and with an
+# injected failure (the final losses within the reference's 1e-5), and the
+# full-width qwen3 for a few steps
+TRAIN_CLI_STEPS, TRAIN_CLI_FULL_STEPS = 8, 5
+TRAIN_CLI_TIMEOUT = 300
+
+
+def _rescaled(cfg, tree: dict) -> dict:
+    """Every normal-init leaf ("normal", "small") scaled to std
+    1/sqrt(d_model) (a tenth of it for "small")."""
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import flatten, tree_map
+
+    spec = flatten(model_spec(cfg))
+    keys = iter(spec)
+
+    def one(t):
+        init = spec[next(keys)].init
+        if init not in ("normal", "small"):
+            return t
+        return t * ((0.1 if init == "small" else 1.0) / cfg.d_model ** 0.5 / t.std())
+
+    return tree_map(one, tree)
+
+
+def train_card_vs_cpu(tag: str, arch: str, family: str | None) -> dict:
+    """Two ``make_train_step`` steps on the CPU and on the card from the
+    same float32 weights and batch: losses, grad norms, every parameter
+    after each step, and the routed expert ids."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import flatten, initialize, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as steps_mod
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).reduced(attn_kv_chunk=8, **({"family": family} if family else {}))
+    gen = torch.Generator().manual_seed(SEED)
+    tree = initialize(gen, model_spec(cfg), torch.float32, "cpu")
+    if arch in TRAIN_RESCALED:
+        tree = _rescaled(cfg, tree)
+    n_media = cfg.num_media_tokens if cfg.family == "vlm" else 0
+    shape = (TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ - n_media)
+    batch = {k: torch.randint(0, cfg.vocab, shape, generator=gen, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    if n_media:
+        batch["media"] = torch.randn((TRAIN_CHECK_BATCH, n_media, cfg.d_model), generator=gen)
+    if cfg.family in ("encdec", "audio"):
+        batch["frames"] = torch.randn((TRAIN_CHECK_BATCH, TRAIN_CHECK_FRAMES, cfg.d_model),
+                                      generator=gen)
+    opt = adamw.OptConfig(**TRAIN_CHECK_OPT)
+    p0 = {k: v.clone() for k, v in flatten(tree).items()}
+    runs, routes = {}, {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = tree_map(lambda t: t.clone().to(dev), tree)
+        state = adamw.init_state(params, opt, device=dev)
+        step = steps_mod.make_train_step(cfg, opt)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out = []
+        with _RouteLog() as rl:
+            for _ in range(2):
+                params, state, loss, metrics = step(params, state, b)
+                out.append({"loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
+                            "params": {k: v.detach().float().cpu().clone()
+                                       for k, v in flatten(params).items()}})
+        runs[name], routes[name] = out, rl.calls
+    name = arch + (f" as {family}" if family else "")
+    loss_err = gnorm_err = step_err = 0.0
+    worst = ""                    # the step and leaf of step_err
+    for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
+        le = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        ge = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+        expect(np.isfinite(a["loss"]) and le <= TRAIN_LOSS_RTOL,
+               f"{name}: step {i} loss card {a['loss']} cpu {b['loss']}")
+        expect(ge <= TRAIN_GRAD_TOL * (1 + 9 * i),
+               f"{name}: step {i} grad norm card {a['grad_norm']} cpu {b['grad_norm']}")
+        for k, want in b["params"].items():
+            update = float((want - p0[k]).abs().max())
+            err = float((a["params"][k] - want).abs().max()) / max(update, 1e-12)
+            expect(err <= TRAIN_STEP_TOL, f"{name}: step {i} parameter {k} differs by "
+                   f"{err:.3g} of its largest update")
+            if err > step_err:
+                step_err, worst = err, f"step {i} {k}"
+        loss_err, gnorm_err = max(loss_err, le), max(gnorm_err, ge)
+    slots, flips, _ = _route_flips(name, routes["card"], routes["cpu"], LMArch().tie)
+    out = {"arch": name, "rescaled": arch in TRAIN_RESCALED,
+           "losses": [r["loss"] for r in runs["card"]],
+           "grad_norms": [r["grad_norm"] for r in runs["card"]], "loss_rel_err": loss_err,
+           "grad_norm_rel_err": gnorm_err, "param_err_of_update": step_err, "worst": worst,
+           "routed_slots": slots, "tie_flips": flips, "s": time.perf_counter() - t0}
+    log(f"[{tag}] card vs CPU, {name} reduced ({cfg.n_layers} layers, d_model {cfg.d_model})"
+        + (", weights rescaled to std 1/sqrt(d_model)" if out["rescaled"] else "")
+        + f", float32, batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, 2 steps: losses "
+        f"{out['losses'][0]:.6f}, {out['losses'][1]:.6f} (rel err {loss_err:.3g}, at most "
+        f"{TRAIN_LOSS_RTOL}), grad norms rel err {gnorm_err:.3g}, parameters within "
+        f"{step_err:.3g} of their largest update (at most {TRAIN_STEP_TOL}; {worst}); routed slots "
+        f"{slots}, {flips} differ; {out['s']:.1f} s")
+    return out
+
+
+def _train_work(cfg, n_params: int, embed_params: int, param_bytes: int, state_bytes: int,
+                batch: int, seq: int) -> dict:
+    """Least FLOPs and bytes of one train step, the reckoning of
+    ``_lm_work``: the matrix products 6 N tokens (8 with per-layer remat:
+    the forward runs again in the backward), N the parameters less the
+    embedding table; causal attention 4 B h hd L (L + 1) / 2 a layer for a
+    forward (x 3 for forward and backward, x 4 with remat); the unembedding
+    2 T d V for a forward (x 4: ``chunked_xent`` recomputes its logits in
+    the backward); bytes: the parameters read and written, the gradients
+    (the parameters' dtype) written and read, ``m`` and ``v`` read and
+    written."""
+    t = batch * seq
+    fwd_passes = 4 if cfg.remat else 3
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    matmul = 2 * fwd_passes * (n_params - embed_params) * t
+    attention = fwd_passes * n_attn * 4 * batch * h * hd * seq * (seq + 1) / 2
+    unembed = 4 * 2 * t * cfg.d_model * cfg.vocab
+    flops = matmul + attention + unembed
+    n_bytes = 2 * param_bytes + 2 * param_bytes + 2 * state_bytes
+    tb, to = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS_S
+    return {"flops": flops, "matmul_flops": matmul, "attention_flops": attention,
+            "unembed_flops": unembed, "bytes": n_bytes, "bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def train_full(tag: str) -> dict:
+    """qwen3-0.6b whole in bf16 on the card: TRAIN_STEPS steps of
+    ``make_train_step`` on one batch of TRAIN_BATCH x TRAIN_SEQ, each timed
+    to a synchronise (the loss read back), the last profiled; every loss
+    finite and the last below the first."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import flatten, initialize
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as steps_mod
+
+    cfg = get_config(TRAIN_ARCH)
+    expect(cfg.remat and cfg.dtype == "bfloat16", f"{TRAIN_ARCH}: remat and bf16 expected")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = initialize(torch.Generator(device="cuda").manual_seed(SEED), model_spec(cfg),
+                        torch.bfloat16, "cuda")
+    opt = adamw.OptConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    state = adamw.init_state(params, opt)
+    step = steps_mod.make_train_step(cfg, opt)
+    batch = lmdata.batch_for_step(cfg, lmdata.ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                        "train"), 0)
+    losses, gnorms, step_ms = [], [], []
+
+    def one():
+        nonlocal params, state
+        params, state, loss, metrics = step(params, state, batch)
+        losses.append(float(loss))
+        gnorms.append(float(metrics["grad_norm"]))
+
+    for _ in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        one()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = _profiled(one)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = flatten(params)
+    n_params = sum(v.numel() for v in leaves.values())
+    param_bytes = sum(v.numel() * v.element_size() for v in leaves.values())
+    state_bytes = sum(v.numel() * v.element_size()
+                      for part in ("m", "v") for v in flatten(state[part]).values())
+    expect(bool(np.isfinite(losses).all()), f"{TRAIN_ARCH}: non-finite loss {losses}")
+    expect(losses[-1] < losses[0], f"{TRAIN_ARCH}: the loss did not fall: {losses}")
+    steady = step_ms[1:]
+    med = float(np.median(steady))
+    work = _train_work(cfg, n_params, leaves["embed"].numel(), param_bytes, state_bytes,
+                       TRAIN_BATCH, TRAIN_SEQ)
+    out = {"arch": TRAIN_ARCH, "params": n_params, "param_gb": param_bytes / 1e9,
+           "state_gb": state_bytes / 1e9, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "step_median_ms": med, "step_min_ms": min(steady), "step_max_ms": max(steady),
+           "tokens_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3), "peak_gb": peak_gb,
+           "profiled": prof, **work}
+    log(f"[{tag}] {TRAIN_ARCH} whole, bf16, remat, float32 AdamW state: {n_params / 1e6:.1f} M "
+        f"parameters ({out['param_gb']:.2f} GB, state {out['state_gb']:.2f} GB), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps on one batch: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {gnorms[0]:.3g} -> {gnorms[-1]:.3g}; "
+        f"step {med:.3f} ms median (range {min(steady):.3f}-{max(steady):.3f}, first "
+        f"{step_ms[0]:.1f}), {out['tokens_s']:.0f} tokens/s; bound {work['bound_ms']:.3f} ms "
+        f"({work['bound_by']}: {work['flops'] / 1e12:.2f} TFLOP, {work['bytes'] / 1e9:.2f} GB); "
+        f"profiled step: {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, idle "
+        f"{prof['idle']:.1%}, {prof['kernels']} kernels; peak {peak_gb:.2f} GB")
+    log(f"[{tag}] largest device entries of the step (us): " + "; ".join(
+        f"{k} {v:.0f}" for k, v in prof["top_us"]))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_ssm_cut(tag: str) -> dict:
+    """falcon-mamba-7b at full width cut to SSM_TRAIN_LAYERS layers, bf16,
+    batch 1 x SSM_TRAIN_SEQ (two scan chunks): two steps (the first warm),
+    loss and grad norm finite, the second step's time, peak memory."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import initialize
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as steps_mod
+
+    cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH), n_layers=SSM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = initialize(torch.Generator(device="cuda").manual_seed(SEED), model_spec(cfg),
+                        torch.bfloat16, "cuda")
+    opt = adamw.OptConfig(total_steps=10, warmup_steps=1)
+    state = adamw.init_state(params, opt)
+    step = steps_mod.make_train_step(cfg, opt)
+    batch = lmdata.batch_for_step(cfg, lmdata.ShapeSpec("train", SSM_TRAIN_SEQ, 1, "train"), 0)
+    ms, losses, gnorms = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, state, loss, metrics = step(params, state, batch)
+        losses.append(float(loss))
+        gnorms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect(bool(np.isfinite(losses + gnorms).all()),
+           f"{SSM_TRAIN_ARCH} cut: non-finite loss {losses} or grad norm {gnorms}")
+    out = {"arch": SSM_TRAIN_ARCH, "layers": SSM_TRAIN_LAYERS, "d_inner": cfg.d_inner,
+           "seq": SSM_TRAIN_SEQ, "chunks": -(-SSM_TRAIN_SEQ // cfg.ssm_chunk),
+           "losses": losses, "grad_norms": gnorms, "step_ms": ms, "peak_gb": peak_gb}
+    log(f"[{tag}] {SSM_TRAIN_ARCH} full width x {SSM_TRAIN_LAYERS} layers (d_inner "
+        f"{cfg.d_inner}), bf16, remat, batch 1 x {SSM_TRAIN_SEQ} ({out['chunks']} scan chunks): "
+        f"loss {losses[0]:.4f}, {losses[1]:.4f}, grad norm {gnorms[0]:.3g}, {gnorms[1]:.3g}, "
+        f"finite; step {ms[1]:.1f} ms (first {ms[0]:.1f}); peak {peak_gb:.2f} GB")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _done_loss(out: str) -> float:
+    return float(_line(out, "done: final_loss=").split("=")[1].split()[0])
+
+
+def train_cli(tag: str) -> dict:
+    """``python -m repro_torch.launch.train`` on the card: reduced qwen3
+    straight and with ``--fail-at 5`` (one restart from the step-4
+    checkpoint, the final losses within 1e-5), and qwen3-0.6b whole for a
+    few steps."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = ["--arch", "qwen3-0.6b", "--reduced", "--steps", str(TRAIN_CLI_STEPS),
+            "--ckpt-every", "2", "--fresh", "--batch", "2", "--seq", "32"]
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, s1 = _cli(base + ["--ckpt-dir", f"{tmp}/a"], env, "train",
+                            TRAIN_CLI_TIMEOUT, module="repro_torch.launch.train")
+        failed, s2 = _cli(base + ["--ckpt-dir", f"{tmp}/b", "--fail-at", "5"], env,
+                          "train --fail-at", TRAIN_CLI_TIMEOUT, module="repro_torch.launch.train")
+    expect("restarting from latest checkpoint" in failed and "[resume] restored step 4" in failed,
+           f"train --fail-at 5 did not resume from step 4:\n{failed[-2000:]}")
+    a, b = _done_loss(straight), _done_loss(failed)
+    expect(abs(a - b) < 1e-5, f"train resume: final_loss {b} against the straight run's {a}")
+    full, s3 = _cli(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_FULL_STEPS), "--batch",
+                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)], env, "train (full width)",
+                    TRAIN_CLI_TIMEOUT, module="repro_torch.launch.train")
+    full_loss = _done_loss(full)
+    expect(np.isfinite(full_loss), f"train (full width): final_loss {full_loss}")
+    step_lines = [ln for ln in full.splitlines() if ln.startswith("step ")]
+    expect(len(step_lines) == TRAIN_CLI_FULL_STEPS, f"train (full width):\n{full[-2000:]}")
+    out = {"straight_final_loss": a, "resumed_final_loss": b, "straight_s": s1,
+           "resumed_s": s2, "full_final_loss": full_loss, "full_s": s3,
+           "full_steps": step_lines}
+    log(f"[{tag}] CLI train, reduced qwen3, {TRAIN_CLI_STEPS} steps: final_loss {a:.4f} "
+        f"straight ({s1:.1f} s), {b:.4f} after --fail-at 5 and a restart from step 4 "
+        f"({s2:.1f} s); {TRAIN_ARCH} whole, {TRAIN_CLI_FULL_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: {step_lines[-1].strip()}, final_loss {full_loss:.4f} ({s3:.1f} s)")
+    return out
+
+
+def train_phase(tag: str) -> dict:
+    """Phase 13: LM training on the card."""
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        check = [train_card_vs_cpu(tag, arch, family) for arch, family in TRAIN_CHECK]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"card_vs_cpu": check, "full": train_full(tag), "ssm": train_ssm_cut(tag),
+           "cli": train_cli(tag)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 13 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3394,6 +3747,14 @@ def main() -> int:
         {"card_vs_cpu": lm["card_vs_cpu"],
          "full": [{k: v for k, v in r.items() if k != "decode_step_ms"} for r in lm["full"]],
          "cli_s": [c["s"] for c in lm["cli"]], "phase_s": lm["phase_s"]}))
+
+    # phase 13: LM training
+    train = train_phase("train")
+    log("[train] " + json.dumps(
+        {"card_vs_cpu": train["card_vs_cpu"],
+         "full": {k: v for k, v in train["full"].items() if k != "step_ms"},
+         "ssm": train["ssm"], "cli": {k: v for k, v in train["cli"].items() if k != "full_steps"},
+         "phase_s": train["phase_s"]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,13 @@ registered dataclass), a dict (by key), a list or tuple (by index), or a
 leaf: a tensor or a numpy array.  ``None`` holds no leaf.  Leaves are
 saved as numpy arrays in their own dtype; on restore a 32-bit integer leaf
 saved in the other signedness (packed words saved as uint32, carried as
-int32) comes back with the same bits.
+int32) comes back with the same bits, and a bfloat16 leaf is saved as its
+raw 16-bit words (numpy has no bfloat16), as the reference's files hold it.
 
 Async: ``AsyncCheckpointer.save_async`` copies the tree to host memory on
-the caller's thread and writes it on a background thread; ``wait()`` joins
-before the next save or at exit.
+the caller's thread (a copy of a CPU tensor too: the caller may go on to
+write its tensors in place, as the train step does) and writes it on a
+background thread; ``wait()`` joins before the next save or at exit.
 """
 
 from __future__ import annotations
@@ -79,14 +81,26 @@ def _flatten(tree: Any) -> list[tuple[str, Any]]:
     return out
 
 
-def _host(leaf) -> np.ndarray:
+# numpy has no bfloat16: a bf16 leaf is saved as its raw 16-bit words, a
+# two-byte void array, which is what the reference's files hold for one
+_BF16_WORDS = np.dtype("V2")
+
+
+def _host(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a numpy array; with ``copy`` it shares no memory with the
+    leaf (a CPU tensor's ``numpy()`` would)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().to("cpu", copy=copy)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_WORDS)
+        return t.numpy()
+    return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _BF16_WORDS
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return leaf.dtype
 
@@ -137,7 +151,8 @@ def save(root: str, step: int, tree: Any, meta: dict | None = None,
         else:
             arr = _host(leaf)
             np.save(os.path.join(tmp, fname), arr)
-            shape, dtype = list(arr.shape), str(arr.dtype)
+            shape = list(arr.shape)
+            dtype = "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
         manifest["leaves"].append({"key": key, "file": fname,
                                    "shape": shape, "dtype": dtype})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -173,7 +188,7 @@ class AsyncCheckpointer:
 
     def save_async(self, step: int, tree: Any, meta: dict | None = None):
         self.wait()
-        host_tree = _map(lambda _, leaf: _host(leaf), tree)
+        host_tree = _map(lambda _, leaf: _host(leaf, copy=True), tree)
 
         def _write():
             save(self.root, step, host_tree, meta)
@@ -213,6 +228,11 @@ def _like_leaf(arr: np.ndarray, like, key: str):
                          f"{tuple(like.shape)}")
     if not isinstance(like, torch.Tensor):
         return arr
+    if like.dtype == torch.bfloat16:
+        if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Viu":
+            raise ValueError(f"dtype mismatch for {key}: ckpt {arr.dtype} vs bfloat16")
+        words = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return words.view(torch.bfloat16).to(like.device)
     want = _np_dtype(like)
     if arr.dtype != want:
         if arr.dtype.kind not in "iu" or want.kind not in "iu" \

@@ -16,16 +16,21 @@ with the reference to float32 tolerance, not bit for bit.  A running
 product of ``da`` divided out is never formed: at the reference's init it
 underflows float32 to 0 within about a hundred steps.
 
+Training (``mamba_train``) runs the same doubling scan out of place
+(``_scan_train``: every level a new tensor, so autograd can take it) in
+chunks of ``cfg.ssm_chunk`` with the state carried, each chunk under
+``torch.utils.checkpoint`` when ``cfg.ssm_checkpoint_chunks`` is set.  Its
+arithmetic is prefill's, step for step.
+
 Decode keeps the (B, di, st) float32 state and the last k-1 pre-conv
-activations, and advances one token a call.  ``mamba_train`` (the same
-scan without the mask) belongs to the training slice (ROADMAP queue 1
-item 10 (d)).
+activations, and advances one token a call.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
@@ -95,11 +100,59 @@ def _chunk_scan(da: torch.Tensor, dbx: torch.Tensor):
     return a, b
 
 
+def _scan_train(da: torch.Tensor, dbx: torch.Tensor):
+    """``_chunk_scan``'s doubling steps out of place: each level is a new
+    tensor (autograd refuses ``out=`` on tensors that need a gradient), the
+    same products and sums in the same order."""
+    a, b = da, dbx
+    q, s = a.shape[1], 1
+    while s < q:
+        a, b = (torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1),
+                torch.cat([b[:, :s], torch.addcmul(b[:, s:], b[:, :-s], a[:, s:])], dim=1))
+        s *= 2
+    return a, b
+
+
 def _gate_out(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """The skip term in float32, the SiLU(z) gate in ``dtype``, out_proj."""
     y = y + xc.float() * params["d_skip"].float()
     return (y.to(dtype) * F.silu(z)) @ params["out_proj"]
+
+
+def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence selective scan for training, x (B, L, d) -> (B, L, d).
+
+    Time is split into chunks of ``min(cfg.ssm_chunk or SSM_CHUNK, L)``, the
+    last one shorter where L is not a whole number of chunks (a doubling
+    scan's value at t reads only t' <= t, so no padding is needed; the
+    reference pads and cuts ``y`` to L).  Each chunk's (B, Q, di, st)
+    expansion is scanned out of place and seeded with the carried state;
+    with ``cfg.ssm_checkpoint_chunks`` a chunk keeps only its inputs for the
+    backward and recomputes the expansion there."""
+    bsz, l, _ = x.shape
+    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,L,di)
+    xc = F.silu(_conv_train(params, xr, cfg.ssm_conv))
+
+    def chunk_step(xc_chunk, h0):
+        da, dbx, c = _ssm_inputs(params, xc_chunk, cfg)
+        cum_a, hs = _scan_train(da, dbx)
+        hs = cum_a * h0[:, None] + hs                                 # seed carry
+        return hs[:, -1], (hs @ c[..., None])[..., 0]                 # (B,di,st), (B,Q,di)
+
+    q = min(cfg.ssm_chunk or SSM_CHUNK, l)
+    h = torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for start in range(0, l, q):
+        xc_chunk = xc[:, start:start + q]
+        if cfg.ssm_checkpoint_chunks:
+            h, y = checkpoint(chunk_step, xc_chunk, h, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, y = chunk_step(xc_chunk, h)
+        ys.append(y)
+    return _gate_out(params, torch.cat(ys, dim=1), xc, z, x.dtype)
 
 
 def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig

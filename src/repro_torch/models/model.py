@@ -15,9 +15,13 @@ vlm     dense decoder consuming [media embeddings ; text embeddings]
 
 Layer parameters are stacked over layers, as the reference's spec has
 them, and the serving functions (``models/serve.py``) walk the stack a
-layer at a time.  ``LanguageModel`` owns the weights as ``nn.Parameter``s
-under the spec's key paths ("layers.attn.wq"), in the reference's layouts,
-so a reference parameter tree carries across without transposes
+layer at a time.  The train path (``loss_fn``: ``backbone_train``, then
+``chunked_xent``) walks it the same way, each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set, as the reference
+remats each step of its layer scan; autograd derives the backward.
+``LanguageModel`` owns the weights as ``nn.Parameter``s under the spec's
+key paths ("layers.attn.wq"), in the reference's layouts, so a reference
+parameter tree carries across without transposes
 (``convert.lm_params_from_reference``).
 """
 
@@ -27,6 +31,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -34,11 +39,12 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec, rmsnorm,
-                                       rmsnorm_spec)
-from repro_torch.models.params import (ParamSpec, check_tree, initialize,
+                                       rmsnorm_spec, unembed)
+from repro_torch.models.params import (ParamSpec, check_tree, flatten, initialize,
                                        stack_layers, tree_map)
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
+XENT_CHUNK = 512
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -135,13 +141,172 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 def encoder_forward(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Bidirectional encoder over (stub) frame embeddings (B, Le, d), then
     ``enc_norm``."""
-    h = frames
-    for i in range(cfg.enc_layers):
-        lp = tree_map(lambda a, i=i: a[i], params["enc_layers"])
+    def enc_layer(lp, h):
         h = h + attn.attention_train(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
                                      cfg, causal=False)
-        h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+
+    h = _scan_stack(enc_layer, params["enc_layers"], frames, cfg, with_aux=False)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+
+# ===========================================================================
+# the train path: layer applications (one layer, unstacked params)
+# ===========================================================================
+
+def _apply_dense_layer(lp, x, cfg):
+    x = x + attn.attention_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg)
+    return x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _apply_moe_layer(lp, x, cfg):
+    x = x + attn.attention_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg)
+    out, aux = moe_mod.moe_layer(lp["moe"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + out, aux
+
+
+def _apply_mamba_layer(lp, x, cfg):
+    return x + mb.mamba_train(lp["mamba"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)
+
+
+def _apply_hybrid_block(bp, x, cfg):
+    """One period block, unrolled: sublayer 0 attention, the rest mamba;
+    the FFN an MLP on even sublayers, MoE on odd ones (aux summed)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    mlp_i = moe_i = 0
+    for j in range(cfg.attn_period):
+        if j == 0:
+            sub = bp["attn"]
+            x = x + attn.attention_train(sub["attn"], rmsnorm(x, sub["ln"], cfg.norm_eps), cfg)
+        else:
+            sub = tree_map(lambda a, j=j: a[j - 1], bp["mamba"])
+            x = x + mb.mamba_train(sub["mamba"], rmsnorm(x, sub["ln"], cfg.norm_eps), cfg)
+        if j % 2 == 1:
+            sub = tree_map(lambda a, i=moe_i: a[i], bp["moe"])
+            out, aux = moe_mod.moe_layer(sub["moe"], rmsnorm(x, sub["ln"], cfg.norm_eps), cfg)
+            x = x + out
+            aux_total = aux_total + aux
+            moe_i += 1
+        else:
+            sub = tree_map(lambda a, i=mlp_i: a[i], bp["mlp"])
+            x = x + mlp(sub["mlp"], rmsnorm(x, sub["ln"], cfg.norm_eps))
+            mlp_i += 1
+    return x, aux_total
+
+
+def _apply_dec_layer(lp, x, enc_out, cfg):
+    x = x + attn.attention_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg)
+    x = x + attn.attention_cross(lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
+                                 enc_out, cfg)
+    return x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _scan_stack(layer_fn, stacked: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                with_aux: bool):
+    """``layer_fn(lp, x)`` -> x or (x, aux) over the stacked leaves' first
+    axis, aux summed in float32.  With ``cfg.remat`` (and a gradient being
+    recorded) each layer keeps only its input for the backward and runs
+    again there, as the reference's ``jax.checkpoint`` of its scan step."""
+    n = next(iter(flatten(stacked).values())).shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        lp = tree_map(lambda a, i=i: a[i], stacked)
+        if remat:
+            out = checkpoint(layer_fn, lp, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = layer_fn(lp, x)
+        if with_aux:
+            x, a = out
+            aux = aux + a
+        else:
+            x = out
+    return (x, aux) if with_aux else x
+
+
+def backbone_train(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                   enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, d) embedded inputs -> (final-normed hidden (B, L, d), the
+    MoE load-balance loss summed over layers, float32)."""
+    check_family(cfg)
+    fam = cfg.family
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def dense(lp, h):
+        return _apply_dense_layer(lp, h, cfg)
+
+    if fam in ("dense", "vlm"):
+        x = _scan_stack(dense, params["layers"], x, cfg, with_aux=False)
+    elif fam == "moe":
+        if cfg.first_k_dense:
+            x = _scan_stack(dense, params["dense_layers"], x, cfg, with_aux=False)
+        x, aux = _scan_stack(lambda lp, h: _apply_moe_layer(lp, h, cfg),
+                             params["layers"], x, cfg, with_aux=True)
+    elif fam == "ssm":
+        x = _scan_stack(lambda lp, h: _apply_mamba_layer(lp, h, cfg),
+                        params["layers"], x, cfg, with_aux=False)
+    elif fam == "hybrid":
+        x, aux = _scan_stack(lambda bp, h: _apply_hybrid_block(bp, h, cfg),
+                             params["blocks"], x, cfg, with_aux=True)
+    else:                                   # encdec, audio
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: the decoder needs the encoder's output")
+        x = _scan_stack(lambda lp, h: _apply_dec_layer(lp, h, enc_out, cfg),
+                        params["layers"], x, cfg, with_aux=False)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+# ===========================================================================
+# losses
+# ===========================================================================
+
+def _xent_sum(table: torch.Tensor, hc: torch.Tensor, lc: torch.Tensor,
+              tied: bool) -> torch.Tensor:
+    """Summed cross entropy of one chunk: float32 logits, logsumexp less
+    the gold logit."""
+    logits = unembed(table, hc, tied=tied).float()
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_xent(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Causal-LM cross entropy, the mean over every (batch, position),
+    without materialising (B, L, V) logits: chunks of ``XENT_CHUNK``
+    positions, each chunk's float32 logits recomputed in the backward.
+
+    The last chunk is shorter when L is not a multiple of the chunk.  The
+    reference takes ``L // chunk`` whole chunks and drops the tail's labels
+    (``src/repro/models/model.py:243-247``): both agree where L <= 512 or
+    L % 512 == 0 (ROADMAP queue 3)."""
+    b, l, _ = hidden.shape
+    chunk = min(XENT_CHUNK, l)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, l, chunk):
+        hc, lc = hidden[:, start:start + chunk], labels[:, start:start + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_xent_sum, table, hc, lc, cfg.tie_embeddings,
+                                       use_reentrant=False, preserve_rng_state=False)
+        else:
+            total = total + _xent_sum(table, hc, lc, cfg.tie_embeddings)
+    return total / (b * l)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B, L), labels (B, L) [, media (B, M, d) | frames
+    (B, Le, d)] -> (xent + 0.01 * aux, {"xent", "aux"}).  A VLM's loss
+    counts its text positions only; an encoder-decoder runs its encoder
+    over the frames (cast to ``cfg.dtype``) first."""
+    enc_out = None
+    if cfg.family in ("encdec", "audio"):
+        enc_out = encoder_forward(params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
+    x = embed_inputs(params, batch, cfg)
+    hidden, aux = backbone_train(params, x, cfg, enc_out=enc_out)
+    if cfg.family == "vlm" and "media" in batch:
+        hidden = hidden[:, batch["media"].shape[1]:]    # loss on text positions
+    xent = chunked_xent(params, hidden, batch["labels"], cfg)
+    return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
 
 # ===========================================================================
@@ -166,9 +331,9 @@ def _tree(module: nn.Module) -> dict:
 
 
 class LanguageModel(nn.Module):
-    """An LM of the zoo for serving: the weights of ``model_spec(cfg)`` as
-    parameters under the spec's key paths, and ``prefill``/``decode_step``
-    over them (``models/serve.py``)."""
+    """An LM of the zoo: the weights of ``model_spec(cfg)`` as parameters
+    under the spec's key paths, ``prefill``/``decode_step`` over them
+    (``models/serve.py``) and the training ``loss``."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()
@@ -203,3 +368,14 @@ class LanguageModel(nn.Module):
         from repro_torch.models import serve
 
         return serve.decode_step(self.params(), tokens, caches, pos, self.cfg)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """``loss_fn`` over the weights: (loss, {"xent", "aux"}).  The batch
+        must lie on the weights' device: nothing is moved.  The weights
+        record no gradient (``requires_grad`` is off); ``runtime/steps.py``
+        ``make_train_step`` trains them."""
+        for k, v in batch.items():
+            if v.device != self.device:
+                raise ValueError(f"batch[{k!r}] lies on {v.device}, the weights on "
+                                 f"{self.device}")
+        return loss_fn(self.params(), batch, self.cfg)

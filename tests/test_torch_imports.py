@@ -52,7 +52,7 @@ def test_import_scan_covers_every_package():
     """The scan above reads every package of the port, ``ckpt`` included."""
     packages = {p.parent.name for p in PORT_FILES}
     assert {"core", "kernels", "serve", "ckpt", "data", "reliability", "runtime",
-            "analysis", "launch", "models", "configs"} <= packages
+            "analysis", "launch", "models", "configs", "optim"} <= packages
     assert ROOT / "src" / "repro_torch" / "ckpt" / "checkpoint.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "serve" / "lifecycle.py" in PORT_FILES
     for name in ("ecc", "faults", "sweep", "channels"):
@@ -60,7 +60,9 @@ def test_import_scan_covers_every_package():
     assert ROOT / "src" / "repro_torch" / "core" / "hwmodel.py" in PORT_FILES
     for rel in ("runtime/aot.py", "runtime/graphs.py", "analysis/guards.py",
                 "launch/serve.py", "runtime/steps.py", "data/lm.py",
-                "configs/registry.py", "configs/hdc_ieeg.py"):
+                "configs/registry.py", "configs/hdc_ieeg.py", "optim/adamw.py",
+                "optim/compress.py", "data/pipeline.py", "launch/train.py",
+                "analysis/lint.py", "analysis/__main__.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
@@ -85,7 +87,10 @@ def test_every_port_module_imports_without_building():
             "repro_torch.reliability.channels", "repro_torch.runtime.aot",
             "repro_torch.runtime.graphs", "repro_torch.analysis.guards",
             "repro_torch.launch.serve", "repro_torch.runtime.steps",
-            "repro_torch.data.lm", "repro_torch.configs.registry"} | {
+            "repro_torch.data.lm", "repro_torch.configs.registry",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.analysis.lint", "repro_torch.analysis.__main__"} | {
                 f"repro_torch.models.{m}" for m in (
                     "config", "params", "layers", "attention", "moe", "model",
                     "serve")} <= set(names)

@@ -282,19 +282,40 @@ def test_convert_refuses_a_wrong_tree(fault):
 
 def test_lm_entry_points_without_a_card_raise(monkeypatch):
     """Without a card, ``device=None`` raises at every LM entry point;
-    nothing falls back to the CPU."""
+    nothing falls back to the CPU.  Training too: the optimizer state, the
+    loss (a model's device is fixed when it is built, so ``loss`` is
+    reached only through a model built on the card or on the CPU by
+    request) and the launcher's loop."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _tcfg("qwen3-0.6b")
-    tree, _ = _weights(j_model.model_spec(_jcfg("qwen3-0.6b")))
+    tree, weights = _weights(j_model.model_spec(_jcfg("qwen3-0.6b")))
     shape = lm.ShapeSpec("s", 8, 1, "prefill")
+    train_shape = lm.ShapeSpec("t", 8, 1, "train")
+    args = train.parser().parse_args(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1"])
     for call in (lambda: model.LanguageModel.init(torch.Generator(), cfg),
                  lambda: convert.lm_params_from_reference(cfg, tree),
                  lambda: serve.init_caches(cfg, 1, 8, torch.float32),
                  lambda: mamba.mamba_init_state(_tcfg("falcon-mamba-7b"), 1, torch.float32),
-                 lambda: lm.batch_for_step(cfg, shape, 0)):
+                 lambda: lm.batch_for_step(cfg, shape, 0),
+                 lambda: adamw.init_state(weights, adamw.OptConfig()),
+                 lambda: model.LanguageModel.init(torch.Generator(), cfg).loss(
+                     lm.batch_for_step(cfg, train_shape, 0, device="cpu")),
+                 lambda: train.train_loop(args),
+                 lambda: train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1",
+                                     "--ckpt-dir", "unused"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert device.resolve_device("cpu").type == "cpu"
+    assert adamw.init_state(weights, adamw.OptConfig(), device="cpu")["step"].is_cpu
+    m = model.LanguageModel(cfg, weights)
+    loss, _ = m.loss(lm.batch_for_step(cfg, train_shape, 0, device="cpu"))
+    assert loss.is_cpu and torch.isfinite(loss)
+    with pytest.raises(ValueError, match="lies on meta"):
+        m.loss({"tokens": torch.zeros((1, 8), dtype=torch.int32, device="meta"),
+                "labels": torch.zeros((1, 8), dtype=torch.int32, device="meta")})
 
 
 # ---------------------------------------------------------------------------
