@@ -150,7 +150,23 @@ Phases (one line each, any failure exits non-zero):
    layers, batch 1 x 512: loss and grad norm finite, time, peak memory);
    and ``launch/train.py`` in subprocesses: reduced qwen3 straight and
    with ``--fail-at 5`` (a restart from the step-4 checkpoint, the final
-   losses within 1e-5), qwen3-0.6b whole for 5 steps.
+   losses within 1e-5), qwen3-0.6b whole for 5 steps;
+14. the fleet on several cards, on phase 4's bank and 1024 sessions (run
+   after phase 11, before phases 12 and 13 free the HDC tensors): (a) a
+   one-rank mesh (``make_mesh((1,), ("data",))``, the group
+   ``cpu:gloo,cuda:nccl`` at world size 1) against the unsharded fleet on
+   steady, ragged and 300-cycle rounds, steady rounds timed in turns, the
+   unsharded fleet's save restored onto the mesh; (b) two rank processes
+   sharing the card (a gloo group: NCCL refuses two ranks on one device),
+   512 sessions each: plain, masked and faulted (BER 1e-2, SECDED) mesh
+   fleets against the unsharded fleet's decisions on both ranks, each
+   rank's fleet-kernel launches, the 2-rank save restored at world size 1,
+   the steady push and collect's copy-and-gather timed, and ``launch/serve.py
+   --hdc-fleet --mesh 2`` under ``torch.distributed.run`` against the
+   unsharded CLI; (c) four tiles of 256 over the card list and over a
+   patched ``[cuda:0, cuda:0]``: fixed fleets eager and warmed, an elastic
+   fleet through spills, eviction, compaction, save and
+   ``from_checkpoint``, each equal to one device.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -248,6 +264,7 @@ PATH_KERNELS = {
     "elastic": ("hdc_fleet",),
     "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
     "deploy": ("hdc_fleet",),
+    "mesh": ("hdc_fleet",),
 }
 
 
@@ -2110,6 +2127,11 @@ class Launches:
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         expect(not missing, f"{path}: kernels {missing} were never launched")
 
+    def add(self, path: str, name: str, n: int) -> None:
+        """Launches counted in other processes (the ranks of phase 14)."""
+        self.paths[path][name] += n
+        log(f"[{path}] launches with the ranks': {self.paths[path]}")
+
     def total(self, name: str) -> int:
         return sum(c[name] for c in self.paths.values())
 
@@ -2716,6 +2738,427 @@ def deploy_phase(tag: str, sparse: dict, dense: dict, fit_bank: dict, records) -
         out["cli"] = deploy_cli(tag, tmp)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[{tag}] phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the fleet on several cards (a mesh over torch.distributed ranks,
+# tiles over the local cards)
+# ---------------------------------------------------------------------------
+
+MESH_STEADY = 4          # steady rounds of 256 cycles, timed in turns at world size 1
+MESH_RANKS = 2           # ranks sharing the one card in (b)
+MESH_TILE = 256          # (c): four tiles of 256 over the card list
+MESH_TIMEOUT = 300       # seconds a rank or CLI subprocess may take
+MESH_FAULTS = dict(tables=1e-2, am=1e-2, counts=1e-2, ecc="secded", seed=5)
+
+
+def _mesh_script(streams: np.ndarray, seed: int) -> list:
+    """Chunk lists: two steady rounds of 256 cycles, a ragged round, a
+    round of 300 cycles (longer than the largest bucket: two steps)."""
+    rng = np.random.default_rng(seed)
+    n = streams.shape[0]
+    lens = [[256] * n, [256] * n, rng.integers(0, 257, n), [300] * n]
+    out, pos = [], 0
+    for ln in lens:
+        out.append([streams[i, pos:pos + int(ln[i])] for i in range(n)])
+        pos += int(max(ln))
+    return out
+
+
+def _flat(decisions) -> dict:
+    """A push's decisions as arrays (session, frame index, prediction,
+    scores, frame HV), for files a rank reads."""
+    rows = [(i, d) for i, ds in enumerate(decisions) for d in ds]
+    return {"session": np.asarray([i for i, _ in rows], np.int64),
+            "frame_index": np.asarray([d.frame_index for _, d in rows], np.int64),
+            "prediction": np.asarray([d.prediction for _, d in rows], np.int64),
+            "scores": np.asarray([d.scores for _, d in rows], np.int64).reshape(len(rows), -1),
+            "frame_hv": np.asarray([d.frame_hv for _, d in rows], np.uint32).reshape(
+                len(rows), -1)}
+
+
+def _same_flat(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _save_bank(path: str, bank: dict) -> None:
+    from dataclasses import asdict
+
+    arrays, cfgs = {}, {}
+    for pid, p in bank.items():
+        cfgs[pid] = asdict(p.cfg)
+        arrays[f"{pid}.item"] = p.params.item_pos.cpu().numpy()
+        arrays[f"{pid}.elec"] = p.params.elec_pos.cpu().numpy()
+        arrays[f"{pid}.class_hvs"] = hv_u32(p.class_hvs)
+        arrays[f"{pid}.am_counts"] = p.am_state.counts.cpu().numpy()
+        arrays[f"{pid}.am_n"] = p.am_state.n.cpu().numpy()
+    np.savez(path + ".npz", **arrays)
+    with open(path + ".json", "w") as f:
+        json.dump(cfgs, f)
+
+
+def _load_bank(path: str, device) -> dict:
+    from repro_torch import convert
+
+    with open(path + ".json") as f:
+        cfgs = json.load(f)
+    a = np.load(path + ".npz")
+    return {pid: convert.pipeline_from_arrays(
+        cfg, a[f"{pid}.item"], a[f"{pid}.elec"], class_hvs=a[f"{pid}.class_hvs"],
+        am_counts=a[f"{pid}.am_counts"], am_n=a[f"{pid}.am_n"], device=device)
+        for pid, cfg in cfgs.items()}
+
+
+def _fleet_kwargs(kind: str, channels: int) -> dict:
+    from repro_torch.reliability.faults import FaultConfig
+
+    if kind == "masked":
+        return {"channel_masking": True}
+    if kind == "faulted":
+        return {"faults": FaultConfig(**MESH_FAULTS)}
+    return {}
+
+
+def _mesh_masks(sessions: int, channels: int) -> np.ndarray:
+    rng = np.random.default_rng(SEED + 41)
+    return (rng.random((sessions, channels)) > 0.1).astype(np.uint8)
+
+
+def mesh_one_rank(tag: str, res: dict, streams: np.ndarray, tmp: str) -> dict:
+    """(a) ``make_mesh((1,), ("data",))`` over NCCL at world size 1 (the
+    group ``cpu:gloo,cuda:nccl`` over a FileStore): the mesh fleet against
+    the unsharded fleet on the card over steady, ragged and 300-cycle
+    rounds, steady rounds timed in turns; then the unsharded fleet's
+    mid-stream save restored onto the mesh continues equal."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.fleet import StreamingFleet
+
+    bank = res["bank"]
+    owners = res["owners"]
+    mesh = make_mesh((1,), ("data",))
+    try:
+        expect(dist.get_backend() == "cpu:gloo,cuda:nccl",
+               f"{tag}: the one-rank group's backend is {dist.get_backend()}")
+        plain = StreamingFleet(bank, owners)
+        sharded = StreamingFleet(bank, owners, mesh=mesh)
+        expect(sharded.n_tiles == 1 and sharded.mesh is mesh, f"{tag}: the mesh fleet's tiles")
+        before = fleet_counts_kernel.launches
+        n_dec = 0
+        for chunks in _mesh_script(streams, SEED + 43):
+            a, b = sharded.push(chunks), plain.push(chunks)
+            expect(all(_same_decisions(x, y) for x, y in zip(a, b)),
+                   f"{tag}: the one-rank mesh fleet differs from the unsharded fleet")
+            n_dec += sum(len(d) for d in a)
+        mesh_launches = fleet_counts_kernel.launches - before
+        expect(_same_state(sharded.state, plain.state), f"{tag}: states differ")
+        base = 256 * 2 + 256 + 300
+        steady = [[streams[i, base + 256 * j:base + 256 * (j + 1)] for i in range(len(owners))]
+                  for j in range(2)]
+        mesh_ms, plain_ms = [], []
+        for use_mesh in ([True, False, False, True] * MESH_STEADY)[:2 * MESH_STEADY]:
+            times, fleet = (mesh_ms, sharded) if use_mesh else (plain_ms, plain)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.push(steady[len(times) % 2])
+            times.append((time.perf_counter() - t0) * 1e3)
+        root = os.path.join(tmp, "mesh_a")
+        plain.save(root, step=0)
+        back = StreamingFleet(bank, owners, mesh=mesh)
+        expect(back.restore(root) == 0, f"{tag}: restore onto the mesh")
+        a, b = back.push(steady[0]), plain.push(steady[0])
+        expect(all(_same_decisions(x, y) for x, y in zip(a, b)),
+               f"{tag}: the unsharded save restored onto the mesh continues differently")
+    finally:
+        dist.destroy_process_group()
+    out = {"decisions": n_dec, "fleet_launches": mesh_launches, "mesh_round_ms": mesh_ms,
+           "plain_round_ms": plain_ms, "mesh_median_ms": float(np.median(mesh_ms)),
+           "plain_median_ms": float(np.median(plain_ms))}
+    log(f"[{tag}] (a) one-rank NCCL mesh, {len(owners)} sessions: {n_dec} decisions equal "
+        f"to the unsharded fleet, {mesh_launches} fleet-kernel launches; steady round in "
+        f"turns: mesh median {out['mesh_median_ms']:.3f} ms "
+        f"({', '.join(f'{x:.3f}' for x in mesh_ms)}), unsharded median "
+        f"{out['plain_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in plain_ms)}); "
+        f"the unsharded save restored onto the mesh continues equal ({CARD})")
+    return out
+
+
+def mesh_rank_main(rank: int, world: int, work: str) -> int:
+    """One rank of (b): a gloo group over a FileStore (NCCL refuses two
+    ranks on one card; the mesh fleet's only traffic is host-side), a
+    ``(world,)`` data mesh on ``cuda:0``, and the plain, masked and faulted
+    mesh fleets on the parent's script against the parent's unsharded
+    decisions; the plain fleet saves; timings and launches to a file."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.fleet import StreamingFleet
+
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(work, 'store')}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        mesh = make_mesh((world,), ("data",), device="cuda:0")
+        bank = _load_bank(os.path.join(work, "bank"), "cuda:0")
+        with open(os.path.join(work, "spec.json")) as f:
+            spec = json.load(f)
+        streams = np.load(os.path.join(work, "streams.npy"))
+        want = np.load(os.path.join(work, "expect.npz"))
+        script = _mesh_script(streams, SEED + 43)
+        channels = streams.shape[2]
+        fleet_counts_kernel.launches = 0
+        out = {"rank": rank, "decisions": 0}
+        for kind in ("plain", "masked", "faulted"):
+            fleet = StreamingFleet(bank, spec["owners"], mesh=mesh,
+                                   **_fleet_kwargs(kind, channels))
+            rows = fleet._state_t[0].counts.shape[0]
+            expect(rows == len(spec["owners"]) // world, f"rank {rank}: holds {rows} rows")
+            if kind == "masked":
+                fleet.set_channel_mask(_mesh_masks(len(spec["owners"]), channels))
+            for j, chunks in enumerate(script):
+                got = _flat(fleet.push(chunks))
+                expect(_same_flat(got, {k: want[f"{kind}.{j}.{k}"] for k in got}),
+                       f"rank {rank}: {kind} push {j} differs from the unsharded fleet")
+                out["decisions"] += len(got["session"])
+            if kind == "faulted":
+                expect(np.array_equal(fleet.ecc_stats, want["faulted.ecc"]),
+                       f"rank {rank}: ECC counts differ")
+            if kind == "plain":
+                fleet.save(os.path.join(work, "ck"), step=0)
+                steady = [streams[i, :256] for i in range(len(spec["owners"]))]
+                push_ms, gather_ms = [], []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rounds = fleet.push_raw(steady)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fleet._round_outputs(rounds)
+                    t2 = time.perf_counter()
+                    push_ms.append((t1 - t0) * 1e3)
+                    gather_ms.append((t2 - t1) * 1e3)
+                out.update(push_raw_ms=push_ms, collect_gather_ms=gather_ms)
+        torch.cuda.synchronize()
+        out["fleet_launches"] = fleet_counts_kernel.launches
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_ranks(tag: str, res: dict, streams: np.ndarray, tmp: str) -> dict:
+    """(b) two processes on the one card, each with half the sessions: the
+    plain, masked and faulted (BER 1e-2, SECDED) mesh fleets decide as the
+    unsharded fleet on the card on both ranks; the 2-rank save restores at
+    world size 1 and continues equal; and ``--hdc-fleet --mesh 2`` under
+    ``torch.distributed.run`` against the unsharded CLI."""
+    import os
+
+    from repro_torch.serve.fleet import StreamingFleet
+
+    bank, owners = res["bank"], res["owners"]
+    work = os.path.join(tmp, "mesh_b")
+    os.makedirs(work)
+    _save_bank(os.path.join(work, "bank"), bank)
+    np.save(os.path.join(work, "streams.npy"), streams)
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"owners": owners}, f)
+    script = _mesh_script(streams, SEED + 43)
+    channels = streams.shape[2]
+    want, plain = {}, None
+    for kind in ("plain", "masked", "faulted"):
+        fleet = StreamingFleet(bank, owners, **_fleet_kwargs(kind, channels))
+        if kind == "masked":
+            fleet.set_channel_mask(_mesh_masks(len(owners), channels))
+        for j, chunks in enumerate(script):
+            want.update({f"{kind}.{j}.{k}": v for k, v in _flat(fleet.push(chunks)).items()})
+        if kind == "faulted":
+            want["faulted.ecc"] = fleet.ecc_stats
+            expect(fleet.ecc_stats.sum() > 0, f"{tag}: the faulted fleet saw no ECC event")
+        if kind == "plain":
+            plain = fleet
+    np.savez(os.path.join(work, "expect.npz"), **want)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), str(MESH_RANKS), work], env=env, cwd=str(ROOT),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        expect(p.returncode == 0, f"{tag}: rank {r} exited {p.returncode}:\n{o[-3000:]}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    expect(all(r["fleet_launches"] > 0 for r in ranks), f"{tag}: a rank launched no fleet kernel")
+    # the 2-rank save at world size 1: an unsharded fleet continues equal
+    back = StreamingFleet(bank, owners)
+    expect(back.restore(os.path.join(work, "ck")) == 0, f"{tag}: restore of the 2-rank save")
+    steady = [streams[i, :256] for i in range(len(owners))]
+    a, b = back.push(steady), plain.push(steady)
+    expect(all(_same_decisions(x, y) for x, y in zip(a, b)),
+           f"{tag}: the 2-rank save restored at world size 1 continues differently")
+
+    # the CLI over two ranks on the one card, beside the unsharded CLI
+    base = ["--hdc-fleet", "--sessions", str(CLI_SESSIONS), "--patients", str(CLI_PATIENTS),
+            "--rounds", str(CLI_ROUNDS), "--device", "cuda:0"]
+    cmds = {"mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", str(MESH_RANKS), "-m", "repro_torch.launch.serve",
+                     *base, "--mesh", str(MESH_RANKS)],
+            "plain": [sys.executable, "-m", "repro_torch.launch.serve", *base]}
+    t0 = time.perf_counter()
+    cli = {k: subprocess.Popen(c, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+    cli_out = {}
+    try:
+        for k, p in cli.items():
+            so, se = p.communicate(timeout=MESH_TIMEOUT)
+            expect(p.returncode == 0, f"{tag}: CLI {k} exited {p.returncode}:\n{(so + se)[-3000:]}")
+            cli_out[k] = so
+    finally:
+        for p in cli.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    fleet_lines = [ln for ln in cli_out["mesh"].splitlines() if ln.startswith("fleet:")]
+    expect(len(fleet_lines) == 1 and f"mesh {MESH_RANKS} (data)" in fleet_lines[0],
+           f"{tag}: the mesh CLI's fleet lines: {fleet_lines}")
+
+    def n_decisions(out: str) -> str:
+        return _line(out, "stream:").split("(", 1)[1].split(",")[1].strip()
+
+    expect(n_decisions(cli_out["mesh"]) == n_decisions(cli_out["plain"]),
+           f"{tag}: the mesh CLI made {n_decisions(cli_out['mesh'])}, the unsharded "
+           f"{n_decisions(cli_out['plain'])}")
+    gather = [x for r in ranks for x in r["collect_gather_ms"]]
+    out = {"ranks": ranks, "ranks_s": ranks_s, "cli_s": cli_s,
+           "cli_stream": _line(cli_out["mesh"], "stream:"),
+           "gather_median_ms": float(np.median(gather)),
+           "push_raw_median_ms": float(np.median([x for r in ranks for x in r["push_raw_ms"]]))}
+    log(f"[{tag}] (b) {MESH_RANKS} ranks on the one card ({len(owners) // MESH_RANKS} "
+        f"sessions each): plain, masked and faulted (BER 1e-2, SECDED) decisions equal to the "
+        f"unsharded fleet on every rank ({[r['decisions'] for r in ranks]} compared), "
+        f"fleet-kernel launches by rank {[r['fleet_launches'] for r in ranks]}; the 2-rank "
+        f"save continues equal at world size 1; steady push_raw median "
+        f"{out['push_raw_median_ms']:.3f} ms a rank, collect's copy and gather median "
+        f"{out['gather_median_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in gather)}); "
+        f"ranks {ranks_s:.1f} s; CLI --mesh {MESH_RANKS} under torch.distributed.run: "
+        f"{out['cli_stream']} (same decisions as the unsharded CLI; {cli_s:.1f} s) ({CARD})")
+    return out
+
+
+def tiles_over_cards(tag: str, res: dict, streams: np.ndarray, tmp: str) -> dict:
+    """(c) four tiles of 256 over the card list ``torch.cuda.device_count()``
+    gives and over the patched ``[cuda:0, cuda:0]``: a ``StreamingFleet``
+    eager and warmed, and an ``ElasticFleet`` (admit to 1024, spills, an
+    eviction, compaction, save, ``from_checkpoint``), each against the same
+    fleet on one device."""
+    import os
+
+    from repro_torch import device as device_mod
+    from repro_torch.serve.fleet import StreamingFleet
+    from repro_torch.serve.lifecycle import ElasticFleet
+
+    bank, owners = res["bank"], res["owners"]
+    natural = device_mod.local_devices
+    lists = {"one": [torch.device("cuda", 0)], "cards": natural("cuda"),
+             "cuda0x2": [torch.device("cuda", 0)] * 2}
+    script = _mesh_script(streams, SEED + 47)
+    runs, n_cmp = {}, 0
+    try:
+        for name, devs in lists.items():
+            device_mod.local_devices = lambda kind, devs=devs: list(devs)
+            for warm in ((False, True) if name != "one" else (False,)):
+                fleet = StreamingFleet(bank, owners, tile=MESH_TILE)
+                expect(fleet.n_tiles == 4 and len(fleet._tile_devs) == 4,
+                       f"{tag}: {name}: {fleet.n_tiles} tiles")
+                if warm:
+                    fleet.warmup()
+                runs[(name, warm)] = [fleet.push(c) for c in script] + [fleet.adapt(
+                    np.arange(len(owners)) % 2)]
+            for (name_, warm), got in runs.items():
+                if name_ == name and name != "one":
+                    want = runs[("one", False)]
+                    for g, w in zip(got[:-1], want[:-1]):
+                        expect(all(_same_decisions(x, y) for x, y in zip(g, w)),
+                               f"{tag}: {name} (warm={warm}) differs from one device")
+                        n_cmp += sum(len(d) for d in g)
+                    expect(np.array_equal(got[-1], want[-1]), f"{tag}: {name}: adapt verdicts")
+        elastic = {}
+        for name, devs in lists.items():
+            device_mod.local_devices = lambda kind, devs=devs: list(devs)
+            f = ElasticFleet(bank, tile=MESH_TILE, max_tiles=4)
+            sids = [f.admit(owners[i]) for i in range(len(owners))]
+            expect(f.n_tiles == 4, f"{tag}: elastic {name}: {f.n_tiles} tiles")
+            decs = [f.push_sessions({s: streams[i, :256] for i, s in enumerate(sids)})]
+            last = f._tile_slices[-1]
+            gone = [s for s in sids if last.start <= f.slot_of(s) < last.stop]
+            q = MESH_TILE // 4                 # evicted from the first and the last tile
+            snaps = f.evict(sids[:q] + gone[-q:])
+            expect(f.compact() == 0, f"{tag}: elastic {name}: the last tile still holds sessions")
+            f.evict([s for s in gone if s in f.sessions], with_state=False)
+            expect(f.compact() == 1, f"{tag}: elastic {name}: compaction")
+            for s in sids[:q]:
+                f.admit(snaps[s].patient_id, snapshot=snaps[s])
+            live = sorted(f.sessions)
+            decs.append(f.push_sessions({s: streams[s % len(owners), 256:512] for s in live}))
+            root = os.path.join(tmp, f"tiles_{name}")
+            f.save(root)
+            back = ElasticFleet.from_checkpoint(bank, root, tile=MESH_TILE, max_tiles=4,
+                                                warm=False)
+            expect(len(back._tile_devs) == back.n_tiles == f.n_tiles,
+                   f"{tag}: elastic {name}: restored tiles")
+            decs.append(back.push_sessions({s: streams[s % len(owners), 512:768]
+                                            for s in live}))
+            elastic[name] = decs
+        for name in ("cards", "cuda0x2"):
+            for g, w in zip(elastic[name], elastic["one"]):
+                expect(g.keys() == w.keys() and all(_same_decisions(g[s], w[s]) for s in g),
+                       f"{tag}: elastic {name} differs from one device")
+                n_cmp += sum(len(d) for d in g.values())
+    finally:
+        device_mod.local_devices = natural
+    log(f"[{tag}] (c) tiles over the local cards ({len(lists['cards'])} card(s) listed) and "
+        f"over [cuda:0, cuda:0]: 4 tiles of {MESH_TILE}, eager and warmed fixed fleets and an "
+        f"elastic fleet (spills, eviction, compaction, save, from_checkpoint): {n_cmp} "
+        f"decisions equal to one device")
+    return {"cards": len(lists["cards"]), "compared": n_cmp}
+
+
+def mesh_phase(tag: str, res: dict) -> dict:
+    """Phase 14 on phase 4's ``sparse_compim`` bank and sessions."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    need = 256 * 2 + 256 + 300 + 512
+    streams = _streams(res, len(res["owners"]), need, SEED + 40)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"one_rank": mesh_one_rank(tag, res, streams, tmp),
+               "two_ranks": mesh_two_ranks(tag, res, streams, tmp),
+               "tiles": tiles_over_cards(tag, res, streams, tmp)}
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3694,6 +4137,14 @@ def main() -> int:
     deploy = deploy_phase("deploy", sparse, dense, fit_bank, records)
     launches.stop("deploy")
 
+    # phase 14: the fleet on several cards, on phase 4's bank and sessions
+    # (run here, before phases 12 and 13 free the HDC tensors)
+    launches.start()
+    mesh = mesh_phase("mesh", sparse)
+    launches.stop("mesh")
+    launches.add("mesh", "hdc_fleet",
+                 sum(r["fleet_launches"] for r in mesh["two_ranks"]["ranks"]))
+
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kc.rows[name]
@@ -3734,10 +4185,15 @@ def main() -> int:
              "compile_s", "warm_first_decision_s", "fresh_artifact", "fresh_build",
              "drain_s")},
          "hwmodel": deploy["hwmodel"]["ratios"], "phase_s": deploy["phase_s"]}))
+    log("[mesh] " + json.dumps(
+        {"one_rank": mesh["one_rank"], "tiles": mesh["tiles"], "phase_s": mesh["phase_s"],
+         "two_ranks": {k: v for k, v in mesh["two_ranks"].items() if k != "ranks"},
+         "rank_launches": [r["fleet_launches"] for r in mesh["two_ranks"]["ranks"]],
+         "card": CARD}))
 
     # phase 12: the LM zoo's serving path, with the HDC phases' tensors freed
     del (patients, codes, records, sparse, res, dense, dense_bank, fit_bank, online,
-         elastic, rel, deploy)
+         elastic, rel, deploy, mesh)
     import gc
 
     gc.collect()
@@ -3764,4 +4220,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:   # one rank of phase 14 (b)
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -13,7 +13,14 @@ Layout (one directory per step, atomically renamed on completion):
   never corrupts the latest checkpoint;
 * ``latest_step`` scans for the highest complete step directory;
 * ``restore`` places each leaf on the device of the matching tensor in
-  ``like`` (there are no shardings in the port).
+  ``like``, or where a matching tree of ``shardings`` says: a
+  ``runtime/sharding.py`` ``Sharding`` (every rank reads the full array and
+  keeps its part: no broadcast) or a device.  Checkpoints hold full arrays,
+  so a state saved on one mesh (or none) restores onto any other;
+* in a process group of several ranks (an SPMD program: every rank calls
+  ``save`` with the same tree) rank 0 writes and every rank waits for it at
+  a barrier; a sharded leaf (a ``DTensor``) is gathered to its full array
+  first.
 
 A tree is a dataclass (leaves keyed by field name, as the reference keys a
 registered dataclass), a dict (by key), a list or tuple (by index), or a
@@ -41,12 +48,20 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.runtime import sharding as shd
 
 _KEY_SEP = "/"
 
 
 def _is_leaf(x) -> bool:
     return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _is_place(x) -> bool:
+    return isinstance(x, (shd.Sharding, torch.device, str))
 
 
 def _children(tree) -> list[tuple[str, Any]]:
@@ -59,13 +74,14 @@ def _children(tree) -> list[tuple[str, Any]]:
     raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
 
 
-def _map(fn: Callable, tree: Any, prefix: str = "") -> Any:
+def _map(fn: Callable, tree: Any, prefix: str = "", is_leaf=_is_leaf) -> Any:
     """The tree with every leaf replaced by ``fn(key, leaf)``."""
     if tree is None:
         return None
-    if _is_leaf(tree):
+    if is_leaf(tree):
         return fn(prefix, tree)
-    kids = {name: _map(fn, child, f"{prefix}{_KEY_SEP}{name}" if prefix else name)
+    kids = {name: _map(fn, child, f"{prefix}{_KEY_SEP}{name}" if prefix else name,
+                       is_leaf)
             for name, child in _children(tree)}
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **kids)
@@ -74,11 +90,21 @@ def _map(fn: Callable, tree: Any, prefix: str = "") -> Any:
     return type(tree)(kids[str(i)] for i in range(len(tree)))
 
 
-def _flatten(tree: Any) -> list[tuple[str, Any]]:
+def _flatten(tree: Any, is_leaf=_is_leaf) -> list[tuple[str, Any]]:
     """(key, leaf) pairs in tree order, keys joined by ``/``."""
     out: list[tuple[str, Any]] = []
-    _map(lambda key, leaf: out.append((key, leaf)), tree)
+    _map(lambda key, leaf: out.append((key, leaf)), tree, is_leaf=is_leaf)
     return out
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _barrier() -> None:
+    """Wait for every rank, over the group's CPU backend (no device
+    collective)."""
+    dist.all_reduce(torch.zeros(1))
 
 
 # numpy has no bfloat16: a bf16 leaf is saved as its raw 16-bit words, a
@@ -124,8 +150,24 @@ def save(root: str, step: int, tree: Any, meta: dict | None = None,
     ``link_from`` (optional): ``{leaf key: existing .npy path}`` for leaves the caller
     knows are unchanged since a previous step; they are hard-linked (copied
     where links are unsupported) instead of written, and a linked file whose
-    shape or dtype differs from the live leaf raises."""
+    shape or dtype differs from the live leaf raises.
+
+    In a group of several ranks every rank calls ``save``: sharded leaves
+    are gathered, rank 0 writes, and all return after it has."""
     final = os.path.join(root, f"step_{step:08d}")
+    tree = _map(lambda _, leaf: leaf.full_tensor() if isinstance(leaf, DTensor)
+                else leaf, tree)
+    if _world() > 1:
+        if dist.get_rank() == 0:
+            _write(final, step, tree, meta, link_from, aot)
+        _barrier()
+        return final
+    _write(final, step, tree, meta, link_from, aot)
+    return final
+
+
+def _write(final: str, step: int, tree: Any, meta: dict | None,
+           link_from: dict[str, str] | None, aot: dict | None) -> None:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -160,7 +202,6 @@ def save(root: str, step: int, tree: Any, meta: dict | None = None,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def leaf_files(root: str, step: int) -> dict[str, str]:
@@ -220,9 +261,10 @@ def latest_step(root: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _like_leaf(arr: np.ndarray, like, key: str):
+def _like_leaf(arr: np.ndarray, like, key: str, where=None):
     """A loaded array as the leaf ``like`` is: a tensor of its dtype on its
-    device, or a numpy array."""
+    device (or placed by ``where``: a ``Sharding`` or a device), or a numpy
+    array."""
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
                          f"{tuple(like.shape)}")
@@ -232,7 +274,7 @@ def _like_leaf(arr: np.ndarray, like, key: str):
         if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Viu":
             raise ValueError(f"dtype mismatch for {key}: ckpt {arr.dtype} vs bfloat16")
         words = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        return words.view(torch.bfloat16).to(like.device)
+        return _placed(words.view(torch.bfloat16), like, where)
     want = _np_dtype(like)
     if arr.dtype != want:
         if arr.dtype.kind not in "iu" or want.kind not in "iu" \
@@ -240,26 +282,34 @@ def _like_leaf(arr: np.ndarray, like, key: str):
             raise ValueError(f"dtype mismatch for {key}: ckpt {arr.dtype} vs "
                              f"{want}")
         arr = arr.view(want)  # the same bits in the other signedness
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(like.device)
+    return _placed(torch.from_numpy(np.ascontiguousarray(arr)), like, where)
 
 
-def restore(root: str, step: int, like: Any) -> Any:
+def _placed(t: torch.Tensor, like: torch.Tensor, where) -> torch.Tensor:
+    return t.to(like.device) if where is None else shd.place(t, where)
+
+
+def restore(root: str, step: int, like: Any, shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors or numpy
-    arrays); each tensor leaf comes back on its ``like`` leaf's device."""
+    arrays).  ``shardings``: a matching tree of ``Sharding``s, devices or
+    None; each tensor leaf comes back where its entry says (its ``like``
+    leaf may then be a ``meta`` tensor, for the shape and dtype), else on
+    its ``like`` leaf's device."""
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    where = dict(_flatten(shardings, is_leaf=_is_place)) if shardings is not None else {}
 
     def load(key, leaf):
         arr = np.load(os.path.join(d, by_key[key]["file"]))
-        return _like_leaf(arr, leaf, key)
+        return _like_leaf(arr, leaf, key, where.get(key))
 
     return _map(load, like)
 
 
-def restore_latest(root: str, like: Any):
+def restore_latest(root: str, like: Any, shardings: Any = None):
     step = latest_step(root)
     if step is None:
         return None, None
-    return step, restore(root, step, like)
+    return step, restore(root, step, like, shardings)

@@ -1,5 +1,4 @@
-"""Host-side data pipeline: the one-card half of the reference's
-``data/pipeline.py``.
+"""Host-side data pipeline (port of the reference's ``data/pipeline.py``).
 
 * **Stateless resume**: a batch is a pure function of (config, step), so a
   restart at step k draws the same stream with no persisted iterator state
@@ -7,11 +6,10 @@
 * **Host slicing**: in a job of several processes each takes its rank's
   slice of the global batch; the rank and world size are
   ``torch.distributed``'s when it is initialised, else 0 and 1.
+* **Placement**: ``shard_to_devices`` puts a host batch where a matching
+  tree of ``runtime/sharding.py`` ``Sharding``s or devices says.
 * **Prefetch**: a background thread keeps ``depth`` batches ahead of the
   training loop, so host-side batch making overlaps the card's work.
-
-The reference's ``shard_to_devices`` places a batch over a mesh; it waits
-for the work on several cards.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from typing import Callable, Iterator
 import torch.distributed as dist
 
 from repro_torch.models.params import tree_map
+from repro_torch.runtime import sharding as shd
 
 
 def host_slice(global_batch: dict, *, process_index: int | None = None,
@@ -39,6 +38,15 @@ def host_slice(global_batch: dict, *, process_index: int | None = None,
         return x[process_index * per:(process_index + 1) * per]
 
     return tree_map(one, global_batch)
+
+
+def shard_to_devices(batch: dict, shardings) -> dict:
+    """Place a (host-local) batch by a matching tree of ``Sharding``s (each
+    rank keeps its part of the full batch), devices or None (left as it
+    is); ``shardings=None`` passes the batch through."""
+    if shardings is None:
+        return batch
+    return tree_map(shd.place, batch, shardings)
 
 
 class Prefetcher:

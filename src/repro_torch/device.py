@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def local_devices(device_type: str) -> list[torch.device]:
+    """The devices of one type this process places work on: one entry per
+    CUDA card for ``"cuda"``, ``[cpu]`` for the CPU.  Capacity tiles
+    round-robin over this list (``serve/fleet.py``)."""
+    if device_type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device(device_type)]

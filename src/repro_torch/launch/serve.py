@@ -36,8 +36,16 @@ of every stream.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (the tests use
 it); ``compile`` then exits, since a CPU fleet has no kernel library to
-ship.  Not ported: ``--mesh`` and ``--seq-sharded-kv`` (several cards),
-which are refused.
+ship.
+
+A fleet over several cards, one process a card (an SPMD mesh fleet:
+``serve/fleet.py``; rank 0 prints):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --hdc-fleet --mesh 4 --sessions 1024
+``--mesh`` with ``--device cpu`` runs the ranks on the CPU over gloo.
+``compile --mesh`` is refused (the deploy artifact warms one process's
+tiles), and so are ``--mesh`` for the LM and ``--seq-sharded-kv`` until
+the LM-on-a-mesh slice of the port.
 """
 
 from __future__ import annotations
@@ -83,12 +91,23 @@ class _GracefulStop:
         return signal.Signals(self.signum).name if self.signum else ""
 
 
+def say(*parts, **kw) -> None:
+    """``print`` on rank 0 only (every rank of a mesh fleet runs the loop)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*parts, **kw)
+
+
 def _build_hdc_fleet(args):
     """Train a small synthetic per-patient bank and assemble the fleet (the
-    reference's bank recipe, codebooks drawn by torch)."""
+    reference's bank recipe, codebooks drawn by torch); ``--mesh`` shards
+    it over the ranks of ``torch.distributed.run``."""
     from repro_torch.core.pipeline import HDCConfig, HDCPipeline
+    from repro_torch.launch.train import parse_mesh
     from repro_torch.serve.fleet import StreamingFleet
 
+    mesh = parse_mesh(args.mesh, device=args.device)  # sets this rank's card
     cfg = HDCConfig(variant=args.variant)
     rng = np.random.default_rng(0)
 
@@ -106,9 +125,12 @@ def _build_hdc_fleet(args):
     t0 = time.perf_counter()
     bank = {f"patient{p}": trained(p) for p in range(args.patients)}
     owners = [f"patient{i % args.patients}" for i in range(args.sessions)]
-    fleet = StreamingFleet(bank, owners, channel_masking=args.channel_health)
-    print(f"fleet: {args.sessions} sessions over {args.patients} patients "
-          f"(single device), built in {time.perf_counter() - t0:.1f} s")
+    fleet = StreamingFleet(bank, owners, channel_masking=args.channel_health,
+                           mesh=mesh)
+    where = ("single device" if mesh is None else
+             f"mesh {'x'.join(map(str, mesh.shape))} ({', '.join(mesh.mesh_dim_names)})")
+    say(f"fleet: {args.sessions} sessions over {args.patients} patients "
+        f"({where}), built in {time.perf_counter() - t0:.1f} s")
     return fleet, cfg, rng
 
 
@@ -141,6 +163,9 @@ def run_hdc_compile(args) -> None:
 
     if not args.aot_dir:
         raise SystemExit("compile mode needs --aot-dir <artifact directory>")
+    if args.mesh:
+        raise SystemExit("compile mode writes one process's deploy artifact; "
+                         "drop --mesh")
     if resolve_device(args.device).type != "cuda":
         raise SystemExit("compile ships the CUDA kernel library, and a CPU "
                          "fleet (--device cpu) has none: no artifact written")
@@ -163,7 +188,7 @@ def run_hdc_fleet(args, t_start: float) -> None:
     t0 = time.perf_counter()
     if args.aot_dir:
         stats = fleet.warmup(aot=art)
-        print(f"warmup from {args.aot_dir}: {stats['loaded']} loaded, "
+        say(f"warmup from {args.aot_dir}: {stats['loaded']} loaded, "
               f"{stats['compiled']} compiled in "
               f"{time.perf_counter() - t0:.2f} s"
               + ("" if art is not None else "  [stale artifact: built from sources]"))
@@ -191,7 +216,7 @@ def run_hdc_fleet(args, t_start: float) -> None:
                     f"[0, {cfg.channels})")
             chunks = [chan_mod.inject_code_fault(c, ch, kind, frng)
                       for c in chunks]
-            print(f"injected {kind} fault on channel {ch} "
+            say(f"injected {kind} fault on channel {ch} "
                   f"(all {args.sessions} sessions)")
     monitor = None
     if args.channel_health:
@@ -199,7 +224,7 @@ def run_hdc_fleet(args, t_start: float) -> None:
 
         monitor = FleetChannelMonitor(args.sessions, cfg.channels)
     fleet.push(chunks)  # the first push: eager shapes run here when not warmed
-    print(f"first decision: {time.perf_counter() - t_start:.2f} s after start "
+    say(f"first decision: {time.perf_counter() - t_start:.2f} s after start "
           f"({_kernel_line()})")
 
     # restore AFTER the first push: restore overwrites the fleet state, so
@@ -208,10 +233,10 @@ def run_hdc_fleet(args, t_start: float) -> None:
         from repro_torch.ckpt import checkpoint as ckpt
         if ckpt.latest_step(args.ckpt_dir) is not None:
             step = fleet.restore(args.ckpt_dir)
-            print(f"resumed fleet from {args.ckpt_dir} step {step} "
+            say(f"resumed fleet from {args.ckpt_dir} step {step} "
                   f"(frames so far: {int(fleet.frame_indices.sum())})")
         else:
-            print(f"--resume: no checkpoint under {args.ckpt_dir}, cold start")
+            say(f"--resume: no checkpoint under {args.ckpt_dir}, cold start")
     decisions = 0
     adapted = 0
     rounds_done = 0
@@ -238,31 +263,31 @@ def run_hdc_fleet(args, t_start: float) -> None:
                 fleet.save(args.ckpt_dir)
     dt = time.perf_counter() - t0
     rate = args.sessions * rounds_done / max(dt, 1e-9)
-    print(f"stream: {rounds_done} rounds x {chunk_len} cycles in {dt * 1e3:.1f} ms "
+    say(f"stream: {rounds_done} rounds x {chunk_len} cycles in {dt * 1e3:.1f} ms "
           f"({rate:.0f} session-chunks/s, {decisions} decisions, "
           f"{dt * 1e6 / max(decisions, 1):.1f} us/decision)")
     if args.adapt_every:
-        print(f"online adaptation: {adapted} gated AM updates across the fleet")
+        say(f"online adaptation: {adapted} gated AM updates across the fleet")
     if monitor is not None:
         ev = monitor.events
-        print(f"channel health: {monitor.n_quarantined} channel(s) "
+        say(f"channel health: {monitor.n_quarantined} channel(s) "
               f"quarantined across the fleet ({len(ev)} events)")
         for e in ev[:20]:
-            print(f"  round {e['block']} session {e['session']} "
+            say(f"  round {e['block']} session {e['session']} "
                   f"ch {e['channel']}: {e['event']} "
                   f"(entropy {e['entropy']:.2f} bits, "
                   f"run {e['stuck_run']})")
         if len(ev) > 20:
-            print(f"  ... {len(ev) - 20} more event(s)")
-    print(f"compiled step executables: {fleet.compile_count} "
+            say(f"  ... {len(ev) - 20} more event(s)")
+    say(f"compiled step executables: {fleet.compile_count} "
           f"(buckets: {fleet._buckets})")
     if args.ckpt_dir:
         path = fleet.save(args.ckpt_dir)
-        print(f"saved fleet checkpoint -> {path}")
+        say(f"saved fleet checkpoint -> {path}")
     if stopper.requested:
         # the final atomic checkpoint above is the shutdown contract; exit
         # clean so supervisors treat this as a graceful drain, not a crash
-        print(f"caught {stopper.name}: checkpointed after round "
+        say(f"caught {stopper.name}: checkpointed after round "
               f"{rounds_done}, exiting 0")
         raise SystemExit(0)
 
@@ -334,9 +359,12 @@ def main():
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--mesh", default=None, help="not ported: refused")
+    ap.add_argument("--mesh", default=None,
+                    help="with --hdc-fleet: shard the fleet over a mesh of the "
+                         "torch.distributed.run ranks ('4', '2x2' or '2x2x2'; "
+                         "axes data, data/model, pod/data/model)")
     ap.add_argument("--seq-sharded-kv", action="store_true",
-                    help="not ported: refused")
+                    help="refused until the LM-on-a-mesh slice of the port")
     ap.add_argument("--hdc-fleet", action="store_true",
                     help="serve the HDC seizure-detection streaming fleet")
     ap.add_argument("--device", default=None,
@@ -373,14 +401,22 @@ def main():
                     help="deploy-artifact directory (runtime/aot.py): "
                          "`compile` writes it, `serve` warms the fleet from it")
     args = ap.parse_args()
-    if args.mesh or args.seq_sharded_kv:
-        ap.error("--mesh and --seq-sharded-kv place work on several cards, "
-                 "which the port does not do yet")
+    if args.seq_sharded_kv or (args.mesh and not args.hdc_fleet
+                               and args.command != "compile"):
+        ap.error("--mesh for the LM and --seq-sharded-kv place the LM on several "
+                 "cards, which comes with the next slice of the port (the LM on a "
+                 "mesh); --hdc-fleet --mesh runs the fleet over several cards")
     if args.command == "compile":
         run_hdc_compile(args)
         return
     if args.hdc_fleet:
-        run_hdc_fleet(args, t_start)
+        try:
+            run_hdc_fleet(args, t_start)
+        finally:
+            import torch.distributed as dist
+
+            if dist.is_initialized():  # a --mesh run's group
+                dist.destroy_process_group()
         return
     if not args.arch:
         ap.error("--arch is required (or pass --hdc-fleet)")

@@ -18,8 +18,10 @@
   error-feedback round trip (``optim/compress.py``) before the update.
 
 ``--device cpu`` runs the plain path on the CPU (the tests use it);
-without it the run takes the CUDA card and raises without one.  Not
-ported: ``--mesh`` (several cards), which is refused.
+without it the run takes the CUDA card and raises without one.
+``--mesh`` (training over several cards) is refused until the LM-on-a-mesh
+slice of the port; ``parse_mesh`` is the mesh flag's parser, which the
+fleet's launcher (``launch/serve.py --hdc-fleet --mesh``) uses already.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 20 --ckpt-dir /tmp/ckpt
@@ -35,6 +37,23 @@ import shutil
 import time
 
 import torch
+
+
+MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def parse_mesh(s: str | None, device=None):
+    """``"4"``, ``"2x2"`` or ``"2x16x16"`` -> a mesh with axes ``data``,
+    ``data``/``model`` or ``pod``/``data``/``model`` (``launch/mesh.py``);
+    ``None`` or ``"none"`` -> None."""
+    if not s or s == "none":
+        return None
+    from repro_torch.launch.mesh import make_mesh
+
+    dims = tuple(int(x) for x in s.split("x"))
+    if len(dims) not in MESH_AXES:
+        raise ValueError(f"--mesh {s!r}: want 1 to 3 sizes joined by 'x'")
+    return make_mesh(dims, MESH_AXES[len(dims)], device=device)
 
 
 def train_loop(args) -> dict:
@@ -78,30 +97,34 @@ def train_loop(args) -> dict:
 
     losses = []
     t_start = time.time()
-    for step in range(start_step, args.steps):
-        t0 = time.time()
-        batch = lmdata.batch_for_step(cfg, shape, step, device=dev)
-        if args.fail_at is not None and step == args.fail_at:
-            raise RuntimeError(f"injected failure at step {step}")
-        if args.grad_compress:
-            params, opt_state, residual, loss, metrics = step_fn(
-                params, opt_state, batch, residual)
-        else:
-            params, opt_state, loss, metrics = step_fn(params, opt_state, batch)
-        loss = float(loss)
-        dt = time.time() - t0
-        if dt > args.step_timeout_s:
-            raise TimeoutError(f"step {step} took {dt:.1f}s > {args.step_timeout_s}s "
-                               "(straggler watchdog)")
-        losses.append(loss)
-        if step % args.log_every == 0:
-            print(f"step {step:5d} loss {loss:.4f} gnorm "
-                  f"{float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
-        if ckptr and (step + 1) % args.ckpt_every == 0:
-            ckptr.save_async(step + 1, {"params": params, "m": opt_state["m"],
-                                        "v": opt_state["v"], "step": opt_state["step"]})
-    if ckptr:
-        ckptr.wait()
+    try:
+        for step in range(start_step, args.steps):
+            t0 = time.time()
+            batch = lmdata.batch_for_step(cfg, shape, step, device=dev)
+            if args.fail_at is not None and step == args.fail_at:
+                raise RuntimeError(f"injected failure at step {step}")
+            if args.grad_compress:
+                params, opt_state, residual, loss, metrics = step_fn(
+                    params, opt_state, batch, residual)
+            else:
+                params, opt_state, loss, metrics = step_fn(params, opt_state, batch)
+            loss = float(loss)
+            dt = time.time() - t0
+            if dt > args.step_timeout_s:
+                raise TimeoutError(f"step {step} took {dt:.1f}s > {args.step_timeout_s}s "
+                                   "(straggler watchdog)")
+            losses.append(loss)
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} gnorm "
+                      f"{float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
+            if ckptr and (step + 1) % args.ckpt_every == 0:
+                ckptr.save_async(step + 1, {"params": params, "m": opt_state["m"],
+                                            "v": opt_state["v"], "step": opt_state["step"]})
+    finally:
+        # an attempt that fails still lands its checkpoint in flight, so
+        # the restart resumes from it and not from the one before
+        if ckptr:
+            ckptr.wait()
     return {"final_loss": losses[-1] if losses else float("nan"),
             "losses": losses, "steps": args.steps - start_step,
             "wall_s": time.time() - t_start}
@@ -116,7 +139,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--mesh", default=None, help="not ported: refused")
+    ap.add_argument("--mesh", default=None,
+                    help="refused until the LM-on-a-mesh slice of the port")
     ap.add_argument("--device", default=None,
                     help="torch device of the run (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
@@ -138,7 +162,8 @@ def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
     if args.mesh and args.mesh != "none":
-        ap.error("--mesh places the run on several cards, which the port does not do yet")
+        ap.error("--mesh trains over several cards, which comes with the next "
+                 "slice of the port (the LM on a mesh)")
 
     from repro_torch.device import resolve_device
 

@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer: token-choice top-k routing.
 
-Two dispatch implementations, as in the reference's ``models/moe.py``:
+Three dispatch implementations, as in the reference's ``models/moe.py``:
 
 * ``dense`` — every expert processes every token, outputs combined with the
   (mostly zero) router weights.
@@ -10,9 +10,13 @@ Two dispatch implementations, as in the reference's ``models/moe.py``:
   with the router weights.  Routed tokens past ``cap`` land in an overflow
   row and contribute nothing.  Every expert's weights are read whatever
   the batch: the (E, cap, d) block meets all E experts.
-
-``local_index`` is the reference's per-data-shard dispatch; it needs a mesh
-and waits for the multi-card work (ROADMAP queue 1 item 10 (e)).
+* ``local_index`` — the index dispatch run per data-parallel shard with a
+  local capacity: tokens reshaped to (n_dp, T_loc, d), each shard sorted,
+  capacity-sliced and scattered back on its own (``_local_build``,
+  ``_local_gather_back``, functions over the leading n_dp axis).  Without a
+  mesh n_dp = 1, as in the reference; over a mesh the leading axis is the
+  one to shard, which the LM-on-a-mesh slice of the port does (until then a
+  mesh raises).
 
 Router: softmax over experts, top-k (ties to the lower expert id, as
 ``jax.lax.top_k``), weights renormalised over the selected experts, and a
@@ -114,9 +118,68 @@ def _experts_index(params, x_flat: torch.Tensor, weights, ids,
     return out.index_add_(0, sorted_tok, contrib)
 
 
-def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig
+def _local_build(xs: torch.Tensor, ws: torch.Tensor, is_: torch.Tensor,
+                 e: int, cap: int) -> tuple:
+    """Per-shard dispatch blocks over the leading n_dp axis: xs (n, T_loc,
+    d), ws/is_ (n, T_loc, k) -> (disp (n, E, cap, d), slot, wgt, sorted_tok
+    (n, T_loc*k) each).  A shard's routed tokens sorted by expert
+    (stable), each token's place in its expert's queue, drops past ``cap``
+    to an overflow row."""
+    n, t_loc, d = xs.shape
+    k = is_.shape[-1]
+    flat_ids = is_.reshape(n, -1)
+    order = torch.argsort(flat_ids, dim=1, stable=True)
+    sorted_ids = torch.gather(flat_ids, 1, order)
+    sorted_tok = order // k
+    experts = torch.arange(e, device=xs.device, dtype=sorted_ids.dtype)
+    starts = torch.searchsorted(sorted_ids, experts.expand(n, e).contiguous())
+    pos = (torch.arange(t_loc * k, device=xs.device)
+           - torch.gather(starts, 1, sorted_ids))
+    keep = pos < cap
+    slot = torch.where(keep, sorted_ids * cap + pos, e * cap)
+    disp = torch.zeros((n, e * cap + 1, d), dtype=xs.dtype, device=xs.device)
+    disp.scatter_(1, slot[..., None].expand(-1, -1, d),
+                  torch.gather(xs, 1, sorted_tok[..., None].expand(-1, -1, d)))
+    wgt = torch.gather(ws.reshape(n, -1), 1, order) * keep
+    return disp[:, :-1].reshape(n, e, cap, d), slot, wgt, sorted_tok
+
+
+def _local_gather_back(out_e: torch.Tensor, slot: torch.Tensor,
+                       wgt: torch.Tensor, sorted_tok: torch.Tensor,
+                       t_loc: int) -> torch.Tensor:
+    """Per-shard weighted scatter-back over the leading n_dp axis: out_e
+    (n, E, cap, d) -> (n, T_loc, d)."""
+    n, e, cap, d = out_e.shape
+    flat = torch.cat([out_e.reshape(n, e * cap, d),
+                      torch.zeros((n, 1, d), dtype=out_e.dtype, device=out_e.device)], 1)
+    contrib = torch.gather(flat, 1, slot[..., None].expand(-1, -1, d)) * wgt[..., None]
+    out = torch.zeros((n, t_loc, d), dtype=out_e.dtype, device=out_e.device)
+    return out.scatter_add_(1, sorted_tok[..., None].expand(-1, -1, d), contrib)
+
+
+def _experts_local_index(params, x_flat: torch.Tensor, weights, ids,
+                         cfg: ArchConfig, n_dp: int = 1) -> torch.Tensor:
+    """Index dispatch per data-parallel shard, with the shard's capacity
+    (the reference's ``_experts_local_index``; n_dp = 1 without a mesh)."""
+    t, d = x_flat.shape
+    if t % n_dp:
+        n_dp = 1
+    t_loc = t // n_dp
+    k, e = cfg.experts_per_token, cfg.n_experts
+    cap = int(t_loc * k / e * cfg.capacity_factor) + 1
+    disp, slot, wgt, sorted_tok = _local_build(
+        x_flat.reshape(n_dp, t_loc, d), weights.reshape(n_dp, t_loc, k),
+        ids.reshape(n_dp, t_loc, k), e, cap)
+    h = F.silu(torch.einsum("secd,edf->secf", disp, params["w_gate"]))
+    h = h * torch.einsum("secd,edf->secf", disp, params["w_up"])
+    out_e = torch.einsum("secf,efd->secd", h, params["w_down"])
+    return _local_gather_back(out_e, slot, wgt, sorted_tok, t_loc).reshape(t, d)
+
+
+def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, d) -> (out, aux_loss)."""
+    """x: (B, L, d) -> (out, aux_loss).  ``ctx``: a ``runtime/sharding``
+    ``ShardCtx`` (None: one card)."""
     b, l, d = x.shape
     x_flat = x.reshape(b * l, d)
     weights, ids, aux = _route(params, x_flat, cfg)
@@ -125,9 +188,12 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig
     elif cfg.moe_dispatch == "index":
         out = _experts_index(params, x_flat, weights, ids, cfg)
     elif cfg.moe_dispatch == "local_index":
-        raise NotImplementedError(
-            "moe_dispatch='local_index' shards the dispatch over a mesh; it waits "
-            "for the multi-card work (ROADMAP queue 1 item 10 (e))")
+        if ctx is not None and ctx.mesh is not None:
+            raise NotImplementedError(
+                "moe_dispatch='local_index' over a mesh shards the dispatch's "
+                "leading axis; it comes with the next slice of the port, the "
+                "LM on a mesh (ROADMAP queue 1)")
+        out = _experts_local_index(params, x_flat, weights, ids, cfg)
     else:
         raise ValueError(cfg.moe_dispatch)
     if "shared" in params:

@@ -24,8 +24,14 @@ card's memory, else ``DEFAULT_TILE`` on the CPU), so ``state`` and the
 checkpoints carry the padded capacity; rows past ``n_sessions`` are phantom
 slots that push zero-length chunks and never emit or adapt.  A fleet
 smaller than a quarter tile keeps its exact size.  Every tile steps every
-round (one kernel launch a tile), and every tile lives on the bank's one
-device.
+round (one kernel launch a tile).  Tiles round-robin over the local devices
+of the bank's type (``device.local_devices``: every card of the host,
+starting at the bank's; the CPU is one device): the bank's tables are
+copied once a device, and each tile's operands, state, staging buffers,
+ECC counters, fault draws and captured graphs live on its own device, so
+steps on different cards run concurrently.  ``state``, ``save`` and
+``collect_decisions`` bring the tiles' rows together on the host or the
+bank's device.
 
 Chunks may have any length per session (0 included).  Lengths are padded
 to the smallest bucket that fits, and a chunk longer than the largest
@@ -78,8 +84,33 @@ falls back to eager steps behind the caller's back.  On the CPU warm-up
 captures nothing.  ``save_aot``/``from_artifact`` ship and load the kernel
 library (``runtime/aot.py``); graphs are captured by each worker.
 
-Decisions are bit-exact with the reference fleet, warmed or not.  Not
-ported: mesh placement, tiles spread over several cards, and stage probes.
+Mesh placement (``mesh=``, a ``launch/mesh.py`` mesh): an SPMD fleet.
+Every rank builds it from the same bank and owners and calls ``push``,
+``adapt``, ``set_channel_mask``, ``set_ber``, ``save`` and ``restore``
+with the same arguments.  Capacity is one tile spanning the mesh; its
+session axis follows the ``batch`` rule (``runtime/sharding.py``: ``data``,
+or ``pod`` and ``data``), so each rank keeps its contiguous block of every
+state leaf (the reference's ``_STATE_AXES`` shard each leaf's leading
+session axis alone, so one session sharding, ``_session_sh``, places them
+all) and stages, steps (one fleet-kernel launch on plain local tensors)
+and adapts only that block; a ``model`` axis holds copies,
+and an axis product that does not divide the capacity replicates the
+sessions on every rank, as the reference's ``_sanitize`` does.  The bank is
+replicated.  Sessions are independent, so a step needs no collective; the
+only cross-rank traffic is a host-side gather (CPU tensors over the group's
+``gloo`` backend) of the rounds' frames and scores in
+``collect_decisions``, and of the state in ``state``, ``class_rows``,
+``adapt``'s verdicts, ``ecc_stats`` and ``save`` (rank 0 writes).
+Arguments are validated before any collective, so a bad call raises on
+every rank.  Fault draws are made for the whole tile on every rank from
+the same seed and sliced to the block, so a faulted mesh fleet decides as
+the unsharded one.  ``restore`` re-shards: a checkpoint holds full arrays,
+so a state saved by any mesh, by an unsharded fleet or by the reference
+restores onto any mesh.  ``warmup`` warns and captures nothing under a mesh
+(the reference's mesh fleets skip their AOT path), and ``save_aot`` raises.
+
+Decisions are bit-exact with the reference fleet, warmed, tiled over
+several devices or on a mesh.  Not ported: stage probes.
 """
 
 from __future__ import annotations
@@ -91,9 +122,13 @@ import warnings
 from dataclasses import dataclass, field, fields, replace
 from typing import Hashable, Mapping, Sequence
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import device as device_mod
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import hv, online
 from repro_torch.core.pipeline import HDCConfig, HDCPipeline
@@ -104,6 +139,7 @@ from repro_torch.reliability import faults as rel_faults
 from repro_torch.reliability.faults import FaultConfig, FaultPlan, StepDraw
 from repro_torch.runtime import aot as aot_mod
 from repro_torch.runtime import graphs
+from repro_torch.runtime import sharding as shd
 from repro_torch.serve import dispatch
 from repro_torch.serve.engine import FrameDecision, _pack_frames
 
@@ -166,6 +202,13 @@ class FleetState:
 
 # the leaves that hold packed words: checkpoints save them as uint32
 _PACKED_LEAVES = ("class_rows", "last_frame")
+
+def _on(dev: torch.device):
+    """Make ``dev`` current while a tile's work is issued (kernel launches
+    and events go to the current card)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def _host_state(state: FleetState) -> FleetState:
@@ -380,14 +423,15 @@ class StreamingFleet:
     ``derive_tile``, capped at the fleet's size rounded up to a power of
     two); ``channel_masking`` enables ``set_channel_mask``; ``faults``
     (a ``FaultConfig``) injects bit errors and enables ``set_ber`` and
-    ``ecc_stats``.
+    ``ecc_stats``; ``mesh`` (a ``launch/mesh.py`` mesh over which every
+    rank runs this fleet) shards the sessions, see the module docstring.
     """
 
     def __init__(self, pipelines: Mapping[Hashable, HDCPipeline],
                  owners: Sequence[Hashable], *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  tile: int | None = None, channel_masking: bool = False,
-                 faults: FaultConfig | None = None):
+                 faults: FaultConfig | None = None, mesh=None):
         self._cfg = dispatch.validate_bank(pipelines)
         self._masked = bool(channel_masking)
         self._faults = faults
@@ -404,6 +448,14 @@ class StreamingFleet:
                 raise KeyError(f"unknown patient id {pid!r} in owners")
         pipes = [pipelines[pid] for pid in pids]
         self._device = pipes[0].device
+        self._ctx = shd.make_ctx(mesh)
+        if mesh is not None:
+            from repro_torch.launch.mesh import mesh_device
+
+            if mesh_device(mesh) != self._device:
+                raise ValueError(
+                    f"the bank is on {self._device} but this rank's mesh "
+                    f"device is {mesh_device(mesh)}: build the bank there")
         tables, param_rows = dispatch.stack_bound_tables(pipes)
         owner_idx = np.asarray([pid_index[pid] for pid in owners], np.int64)
         self._n = len(owner_idx)
@@ -424,9 +476,34 @@ class StreamingFleet:
         if self._np > self._n:  # phantom slots take patient 0's registers
             owner_idx = np.concatenate(
                 [owner_idx, np.zeros(self._np - self._n, np.int64)])
+        if mesh is not None:  # one tile spanning the mesh
+            tile = self._np
         self._tile_slices = [slice(i, min(i + tile, self._np))
                              for i in range(0, self._np, tile)]
+        # each tile's device, and the rows of it this process holds: the
+        # whole tile, or under a mesh this rank's block of the session axis
+        if mesh is None:
+            devs = device_mod.local_devices(self._device.type)
+            if self._device in devs:  # the bank's device takes tile 0
+                i = devs.index(self._device)
+                devs = devs[i:] + devs[:i]
+            self._session_sh = None
+        else:
+            devs = [self._device]
+            self._session_sh = shd.sharding_for(("batch",), self._ctx, (self._np,))
+            self._rank_rows = [
+                shd.local_rows(self._np, self._session_sh,
+                               tuple((mesh.mesh == r).nonzero()[0].tolist()))
+                for r in range(mesh.size())]
+        self._devs = devs
+        self._tile_devs = [devs[k % len(devs)] for k in range(len(self._tile_slices))]
+        self._rows_t = [self._local_rows(sl) for sl in self._tile_slices]
         self._tables = tables.contiguous()
+        # the bank's pre-bound tables, one copy a device the tiles use
+        self._tables_dev = {self._device: self._tables}
+        for d in self._tile_devs:
+            if d not in self._tables_dev:
+                self._tables_dev[d] = self._tables.to(d)
         # per-slot operand registers: host mirrors and per-tile copies
         self._thr_h = np.asarray([p.cfg.temporal_threshold for p in pipes],
                                  np.int32)[owner_idx]
@@ -448,9 +525,9 @@ class StreamingFleet:
                 [p.am_state.n.cpu().numpy() for p in pipes])[owner_idx]
         else:
             self._am_counts0 = self._am_n0 = None
-        # (start, stop) -> device copies of a tile's initial class rows and
-        # counter file, cloned into every fresh state of that tile
-        self._rows0_dev: dict[tuple[int, int], tuple] = {}
+        # (start, stop, device) -> device copies of a tile's initial class
+        # rows and counter file, cloned into every fresh state of that tile
+        self._rows0_dev: dict[tuple, tuple] = {}
         self._state_t = self._zero_states()
         # the electrode quarantine: a host (S_prov, channels) mask, 1 =
         # live, and its per-tile int32 copies; phantom rows stay all-live
@@ -476,49 +553,62 @@ class StreamingFleet:
         # with live cycles, adapt, slot writes and restore)
         self._dirty_t = [True] * len(self._tile_slices)
         # warm-up: per tile index its static tensors, per (tile, bucket) the
-        # captured step and per tile the captured adapt, one memory pool;
-        # the step shapes run eagerly so far
+        # captured step and per tile the captured adapt, one memory pool a
+        # device (a pool belongs to one card); the step shapes run eagerly
+        # so far
         self._static: dict[int, _TileStatic] = {}
         self._graphs: dict[tuple[int, int], graphs.StepGraph] = {}
         self._adapt_graphs: dict[int, graphs.StepGraph] = {}
-        self._pool = None
+        self._pools: dict[torch.device, object] = {}
         self._shapes_seen: set[tuple] = set()
 
     # -- state ----------------------------------------------------------------
 
-    def _put(self, x: np.ndarray, dtype: torch.dtype | None = None
-             ) -> torch.Tensor:
-        """A device copy of a host array (never a view of it).  On the card
-        it goes through pinned memory and is queued without waiting (the
-        pinned block is not reused before the copy has run)."""
+    def _local_rows(self, sl: slice) -> slice:
+        """The rows of tile ``sl`` this process holds (all of them without a
+        mesh)."""
+        if self._session_sh is None:
+            return sl
+        r = shd.local_rows(sl.stop - sl.start, self._session_sh,
+                           self._ctx.mesh.get_coordinate())
+        return slice(sl.start + r.start, sl.start + r.stop)
+
+    def _put(self, x: np.ndarray, dtype: torch.dtype | None = None,
+             device: torch.device | None = None) -> torch.Tensor:
+        """A copy of a host array on ``device`` (default the bank's), never
+        a view of it.  On the card it goes through pinned memory and is
+        queued without waiting (the pinned block is not reused before the
+        copy has run)."""
+        dev = self._device if device is None else device
         t = torch.from_numpy(np.array(x))
         if dtype is not None:
             t = t.to(dtype)
-        if self._device.type != "cuda":
+        if dev.type != "cuda":
             return t
-        return t.pin_memory().to(self._device, non_blocking=True)
+        return t.pin_memory().to(dev, non_blocking=True)
 
     def _put_tiles(self, x: np.ndarray, dtype: torch.dtype | None = None
                    ) -> list[torch.Tensor]:
-        return [self._put(x[sl], dtype) for sl in self._tile_slices]
+        return [self._put(x[r], dtype, d) for r, d in zip(self._rows_t, self._tile_devs)]
 
-    def _zero_state(self, sl: slice) -> FleetState:
-        """Fresh state of one capacity tile: every session reset to its
-        patient's trained bank."""
-        cfg, dev = self._cfg, self._device
+    def _zero_state(self, k: int) -> FleetState:
+        """Fresh state of capacity tile ``k`` (its rows this process holds):
+        every session reset to its patient's trained bank."""
+        cfg, dev, sl = self._cfg, self._tile_devs[k], self._rows_t[k]
         s = sl.stop - sl.start
         c = self._class_rows0.shape[1]
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
-        key = (sl.start, sl.stop)
+        key = (sl.start, sl.stop, dev)
         if key not in self._rows0_dev:
             # a tile's initial rows never change once its slice exists
-            am = ((self._put(self._am_counts0[sl]), self._put(self._am_n0[sl]))
+            am = ((self._put(self._am_counts0[sl], device=dev),
+                   self._put(self._am_n0[sl], device=dev))
                   if self._am_counts0 is not None else (None, None))
-            self._rows0_dev[key] = (self._put(hv.to_i32(self._class_rows0[sl])),
-                                    *am)
+            self._rows0_dev[key] = (
+                self._put(hv.to_i32(self._class_rows0[sl]), device=dev), *am)
         rows0, am_counts, am_n = (None if t is None else t.clone()
                                   for t in self._rows0_dev[key])
         if am_counts is None:
@@ -530,11 +620,44 @@ class StreamingFleet:
                           last_scores=zeros(s, c), has_frame=zeros(s))
 
     def _zero_states(self) -> list[FleetState]:
-        return [self._zero_state(sl) for sl in self._tile_slices]
+        return [self._zero_state(k) for k in range(len(self._tile_slices))]
 
     def _zero_ecc(self) -> list[torch.Tensor]:
-        return [torch.zeros((sl.stop - sl.start, 3), dtype=torch.int32,
-                            device=self._device) for sl in self._tile_slices]
+        return [torch.zeros((r.stop - r.start, 3), dtype=torch.int32, device=d)
+                for r, d in zip(self._rows_t, self._tile_devs)]
+
+    # -- mesh gathers -----------------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The mesh the sessions are sharded over (None: tiles on this
+        process's devices)."""
+        return self._ctx.mesh
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tile's rows on the host from each rank's block of them:
+        one all-gather of CPU tensors over the group's CPU backend (no
+        device collective).  Without a mesh, or when the blocks are
+        replicated, the local rows are all of them."""
+        cpu = local.detach().cpu().contiguous()
+        if self._session_sh is None or self._rank_rows[0].stop == self._np:
+            return cpu
+        parts = [torch.empty_like(cpu) for _ in self._rank_rows]
+        dist.all_gather(parts, cpu)
+        first = {}
+        for rank, rows in enumerate(self._rank_rows):
+            first.setdefault(rows.start, rank)
+        return torch.cat([parts[first[start]] for start in sorted(first)])
+
+    def _cat_tiles(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Tile tensors (their leading dims the tiles' local rows) as one
+        tensor of every row on the bank's device: the tiles on other
+        devices copied over, a mesh's blocks gathered."""
+        if self._session_sh is not None:
+            return self._gather(tensors[0]).to(self._device)
+        if len(tensors) == 1:
+            return tensors[0]
+        return torch.cat([t.to(self._device) for t in tensors])
 
     def reset(self) -> None:
         """Zero every accumulator, fill level, frame index and ECC counter,
@@ -561,17 +684,16 @@ class StreamingFleet:
 
     @property
     def state(self) -> FleetState:
-        """The whole fleet's state, tiles concatenated: its leading dim is
-        the provisioned capacity, and rows past ``n_sessions`` are phantom
-        slots.  A warmed tile's static state is copied, so the value does
-        not move with later replays."""
+        """The whole fleet's state, tiles concatenated on the bank's device
+        (a mesh's blocks gathered: every rank calls this): its leading dim
+        is the provisioned capacity, and rows past ``n_sessions`` are
+        phantom slots.  A warmed tile's static state is copied, so the
+        value does not move with later replays."""
         tiles = [_clone_state(st) if k in self._static and
                  st is self._static[k].state else st
                  for k, st in enumerate(self._state_t)]
-        if len(tiles) == 1:
-            return tiles[0]
         return FleetState(**{
-            f.name: torch.cat([getattr(st, f.name) for st in tiles])
+            f.name: self._cat_tiles([getattr(st, f.name) for st in tiles])
             for f in fields(FleetState)})
 
     @property
@@ -610,7 +732,7 @@ class StreamingFleet:
         Zeros without an ECC scheme or a fault plan."""
         if self._plan is None:
             return np.zeros((self._n, 3), np.int64)
-        return torch.cat(self._ecc_t).cpu().numpy().astype(np.int64)[:self._n]
+        return self._cat_tiles(self._ecc_t).cpu().numpy().astype(np.int64)[:self._n]
 
     def _step_draw(self, k: int, phase: int) -> StepDraw:
         """Tile ``k``'s fault draw for the round at ``phase``, on the fleet's
@@ -619,7 +741,7 @@ class StreamingFleet:
         plan = self._plan
         if plan.mode == "stuck" and k in self._stuck_draws:
             return self._stuck_draws[k]
-        sl = self._tile_slices[k]
+        sl, local = self._tile_slices[k], self._rows_t[k]
         rows = (sl.stop - sl.start, self._class_rows0.shape[1], self._cfg.words)
         draw = rel_faults.draw_step(
             plan, self._faults.ber_vector(),
@@ -627,7 +749,14 @@ class StreamingFleet:
                                  phase=phase),
             tables_shape=self._tables.shape, rows_shape=rows,
             counts_shape=(rows[0], self._cfg.dim), window=self._cfg.window,
-            device=self._device)
+            device=self._tile_devs[k])
+        if local != sl:  # a mesh block: the whole tile's draw, sliced
+            r = slice(local.start - sl.start, local.stop - sl.start)
+            draw = StepDraw(**{
+                f.name: (wd if wd is None or f.name == "tables" else
+                         rel_faults.WordDraw(wd.sel[r], None if wd.val is None
+                                             else wd.val[r]))
+                for f in fields(StepDraw) for wd in [getattr(draw, f.name)]})
         if plan.mode == "stuck":
             self._stuck_draws[k] = draw
         return draw
@@ -697,8 +826,8 @@ class StreamingFleet:
         if done is not None:
             done.synchronize()
         if key not in self._stage_t[k]:
-            sl = self._tile_slices[k]
-            pin = self._device.type == "cuda"
+            sl = self._rows_t[k]
+            pin = self._tile_devs[k].type == "cuda"
             bufs = (torch.zeros((sl.stop - sl.start, t_pad, self._cfg.channels),
                                 dtype=torch.uint8, pin_memory=pin),
                     torch.zeros((sl.stop - sl.start,), dtype=torch.int32,
@@ -750,8 +879,6 @@ class StreamingFleet:
         steps, and a tile with no live cycles stays clean."""
         rounds: list[FleetRound] = []
         max_bucket = self._buckets[-1]
-        dev = self._device
-        cuda = dev.type == "cuda"
         pos = 0
         total = int(lengths.max(initial=0))
         while pos < total:
@@ -764,23 +891,25 @@ class StreamingFleet:
             slot = phase & 1
             self._stage_phase += 1
             outs = []
-            for k, sl in enumerate(self._tile_slices):
+            for k, (sl, rows, dev) in enumerate(zip(self._tile_slices, self._rows_t,
+                                                    self._tile_devs)):
                 stage, lens_buf = self._stage_buf(k, slot, t_pad)
-                hi = min(sl.stop, self._n)  # phantom rows: stale == masked
-                if hi > sl.start:
-                    stage.numpy()[:hi - sl.start, :width] = big[sl.start:hi,
-                                                                pos:pos + width]
-                lens_buf.numpy()[:] = round_len32[sl]
-                graph = self._graphs.get((k, t_pad))
-                if graph is not None:
-                    fo = self._replay_step(k, t_pad, graph, stage, lens_buf, phase)
-                else:
-                    fo = self._eager_step(k, t_pad, stage.to(dev, non_blocking=True),
-                                          lens_buf.to(dev, non_blocking=True), phase)
-                if cuda:  # the staging slot is free once this step has run
-                    done = torch.cuda.Event()
-                    done.record()
-                    self._stage_done_t[k][(slot, t_pad)] = done
+                hi = min(rows.stop, self._n)  # phantom rows: stale == masked
+                if hi > rows.start:
+                    stage.numpy()[:hi - rows.start, :width] = big[rows.start:hi,
+                                                                  pos:pos + width]
+                lens_buf.numpy()[:] = round_len32[rows]
+                with _on(dev):
+                    graph = self._graphs.get((k, t_pad))
+                    if graph is not None:
+                        fo = self._replay_step(k, t_pad, graph, stage, lens_buf, phase)
+                    else:
+                        fo = self._eager_step(k, t_pad, stage.to(dev, non_blocking=True),
+                                              lens_buf.to(dev, non_blocking=True), phase)
+                    if dev.type == "cuda":  # the staging slot is free once this step has run
+                        done = torch.cuda.Event()
+                        done.record()
+                        self._stage_done_t[k][(slot, t_pad)] = done
                 if round_len[sl].any():
                     self._dirty_t[k] = True
                 outs.append(fo)
@@ -796,9 +925,10 @@ class StreamingFleet:
                     lens: torch.Tensor, phase: int) -> FleetOut:
         """Tile ``k``'s step as eager launches (a shape first run here is
         logged in ``graphs.EAGER_LOG``)."""
-        sl = self._tile_slices[k]
+        sl = self._rows_t[k]
         self._note_eager("step", sl.stop - sl.start, t_pad)
-        args = (self._state_t[k], self._tables, self._param_owner_t[k],
+        args = (self._state_t[k], self._tables_dev[self._tile_devs[k]],
+                self._param_owner_t[k],
                 self._thresholds_t[k], chunk, lens,
                 self._cmask_t[k] if self._masked else None)
         if self._plan is None:
@@ -881,20 +1011,40 @@ class StreamingFleet:
         """``push`` for a pre-stacked (S, t, channels) code batch."""
         return self.collect_decisions(self.push_codes_raw(batch, lengths))
 
+    def _round_outputs(self, rounds: Sequence[FleetRound]) -> list[list]:
+        """Each round's per-tile (frames uint32, scores) host arrays of the
+        tile's every row; ``None`` for a tile that emitted nothing.  Under a
+        mesh the rounds' blocks are gathered in one collective."""
+        if self._session_sh is None:
+            return [[None if not r.n_emit[sl].any() else
+                     (hv.to_u32(fo.frames), fo.scores.cpu().numpy())
+                     for sl, fo in zip(self._tile_slices, r.tiles)] for r in rounds]
+        if not rounds:
+            return []
+        w = self._cfg.words
+        local = [torch.cat([r.tiles[0].frames, r.tiles[0].scores], -1) for r in rounds]
+        full = self._gather(torch.cat([t.flatten(1) for t in local], 1))
+        out, at = [], 0
+        for t in local:
+            n = t[0].numel()
+            both = full[:, at:at + n].reshape(-1, *t.shape[1:]).numpy()
+            at += n
+            out.append([(both[..., :w].view(np.uint32), both[..., w:])])
+        return out
+
     def collect_decisions(self, rounds: Sequence[FleetRound]
                           ) -> list[list[FrameDecision]]:
         """Materialise per-session FrameDecision lists from raw rounds (the
-        only place the fleet waits for the device)."""
+        only place the fleet waits for the device; under a mesh every rank
+        calls it and gets every session's decisions)."""
         out: list[list[FrameDecision]] = [[] for _ in range(self._n)]
-        for r in rounds:
-            if not r.n_emit.any():
-                continue
-            for sl, fo in zip(self._tile_slices, r.tiles):
-                ne = r.n_emit[sl]
-                if not ne.any():
+        rounds = [r for r in rounds if r.n_emit.any()]
+        for r, host in zip(rounds, self._round_outputs(rounds)):
+            for sl, tile_out in zip(self._tile_slices, host):
+                if tile_out is None:
                     continue
-                frames = hv.to_u32(fo.frames)
-                scores = fo.scores.cpu().numpy()
+                ne = r.n_emit[sl]
+                frames, scores = tile_out
                 preds = np.argmax(scores, axis=-1)
                 for i in np.nonzero(ne)[0]:
                     g = sl.start + int(i)
@@ -916,7 +1066,7 @@ class StreamingFleet:
     @property
     def class_rows(self) -> np.ndarray:
         """(S, C, W) uint32 per-session (possibly adapted) class HV rows."""
-        return hv.to_u32(torch.cat([st.class_rows for st in self._state_t]))[:self._n]
+        return hv.to_u32(self._cat_tiles([st.class_rows for st in self._state_t]))[:self._n]
 
     def adapt(self, labels: Sequence[int], *, margin: float = 0.0) -> np.ndarray:
         """Personalise all S sessions' AMs from one feedback label each:
@@ -941,21 +1091,22 @@ class StreamingFleet:
         full = np.full((self._np,), -1, np.int64)  # phantoms: no feedback
         full[:self._n] = lab
         applied = []
-        for k, sl in enumerate(self._tile_slices):
-            graph = self._adapt_graphs.get(k)
-            if graph is not None:
-                st = self._bind_static(k)
-                st.labels.copy_(self._put(full[sl]))
-                st.margin.fill_(float(np.float32(margin)))
-                app = graph.replay()[0]
-            else:
-                self._note_eager("adapt", sl.stop - sl.start)
-                self._state_t[k], app = _fleet_adapt(
-                    self._state_t[k], self._put(full[sl]), margin,
-                    self._density_t[k], cfg=self._cfg)
+        for k, (sl, dev) in enumerate(zip(self._rows_t, self._tile_devs)):
+            with _on(dev):
+                graph = self._adapt_graphs.get(k)
+                if graph is not None:
+                    st = self._bind_static(k)
+                    st.labels.copy_(self._put(full[sl], device=dev))
+                    st.margin.fill_(float(np.float32(margin)))
+                    app = graph.replay()[0]
+                else:
+                    self._note_eager("adapt", sl.stop - sl.start)
+                    self._state_t[k], app = _fleet_adapt(
+                        self._state_t[k], self._put(full[sl], device=dev), margin,
+                        self._density_t[k], cfg=self._cfg)
             self._dirty_t[k] = True
-            applied.append(app.cpu().numpy())
-        return np.concatenate(applied)[:self._n]
+            applied.append(app.to(torch.int32))
+        return self._cat_tiles(applied).cpu().numpy()[:self._n] != 0
 
     # -- warm-up: CUDA graphs and deploy artifacts ----------------------------
 
@@ -995,7 +1146,7 @@ class StreamingFleet:
         bucket) and, when the bank can adapt, one adapt a tile shape."""
         out: list[aot_mod.AOTEntry] = []
         seen: set[tuple] = set()
-        for sl in self._tile_slices:
+        for sl in self._rows_t:
             tile_s = sl.stop - sl.start
             for b in buckets or self._buckets:
                 if ("step", tile_s, b) not in seen:
@@ -1011,22 +1162,27 @@ class StreamingFleet:
     def save_aot(self, path: str) -> dict:
         """Write this fleet's deploy artifact at ``path``: the built kernel
         library and the entry names (``runtime/aot.py``); returns the
-        manifest.  Run at deploy time (``launch/serve.py compile``)."""
+        manifest.  Run at deploy time (``launch/serve.py compile``); a mesh
+        fleet has no artifact (its ranks step eagerly) and raises."""
+        if self.mesh is not None:
+            raise ValueError("a deploy artifact warms one process's tiles; "
+                             "build it from a fleet without a mesh")
         return aot_mod.save_artifact(
             path, self.aot_entries(), key=aot_mod.artifact_key(device=self._device))
 
-    def _graph_pool(self):
-        if self._pool is None:  # one pool for all of this fleet's graphs
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
+    def _graph_pool(self, dev: torch.device):
+        if dev not in self._pools:  # one pool a device for this fleet's graphs
+            with _on(dev):
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+        return self._pools[dev]
 
     def _tile_static(self, k: int) -> _TileStatic:
         """Tile ``k``'s static tensors, made (from its current state and
         registers) at its first capture and bound to it."""
         st = self._static.get(k)
         if st is None:
-            sl = self._tile_slices[k]
-            s, dev = sl.stop - sl.start, self._device
+            sl = self._rows_t[k]
+            s, dev = sl.stop - sl.start, self._tile_devs[k]
             regs = {name: getattr(self, name)[k].clone() for name in _REGISTERS
                     if name != "_cmask_t" or self._masked}
             st = _TileStatic(
@@ -1059,16 +1215,18 @@ class StreamingFleet:
         return st
 
     def _capture_step(self, k: int, t_pad: int) -> graphs.StepGraph:
-        """Capture tile ``k``'s step at bucket ``t_pad``."""
+        """Capture tile ``k``'s step at bucket ``t_pad`` (on the tile's
+        device, current while this runs)."""
         st = self._tile_static(k)
-        sl = self._tile_slices[k]
+        sl, dev = self._rows_t[k], self._tile_devs[k]
         s = sl.stop - sl.start
         chunk = st.chunks.setdefault(t_pad, torch.zeros(
-            (s, t_pad, self._cfg.channels), dtype=torch.uint8, device=self._device))
+            (s, t_pad, self._cfg.channels), dtype=torch.uint8, device=dev))
         extra = {} if self._plan is None else {"faults": self._plan, "draw": st.draw}
+        tables = self._tables_dev[dev]
 
         def run(state):
-            return _fleet_step(state, self._tables, st.regs["_param_owner_t"],
+            return _fleet_step(state, tables, st.regs["_param_owner_t"],
                                st.regs["_thresholds_t"], chunk, st.lens,
                                st.regs.get("_cmask_t"), cfg=self._cfg, **extra)
 
@@ -1079,16 +1237,16 @@ class StreamingFleet:
 
         g = graphs.capture(self._aot_name("step", s, t_pad), body,
                            warm=lambda: run(_clone_state(st.state)),
-                           pool=self._graph_pool(),
+                           pool=self._graph_pool(dev),
                            counted=(fleet_ops.fleet_counts_kernel,))
         self._graphs[(k, t_pad)] = g
         return g
 
     def _capture_adapt(self, k: int) -> graphs.StepGraph:
         """Capture tile ``k``'s adapt (labels and margin as static
-        operands)."""
+        operands; on the tile's device, current while this runs)."""
         st = self._tile_static(k)
-        sl = self._tile_slices[k]
+        sl = self._rows_t[k]
 
         def run(state):
             return _fleet_adapt(state, st.labels, st.margin,
@@ -1101,7 +1259,7 @@ class StreamingFleet:
 
         g = graphs.capture(self._aot_name("adapt", sl.stop - sl.start), body,
                            warm=lambda: run(_clone_state(st.state)),
-                           pool=self._graph_pool())
+                           pool=self._graph_pool(self._tile_devs[k]))
         self._adapt_graphs[k] = g
         return g
 
@@ -1115,9 +1273,15 @@ class StreamingFleet:
         artifact names counts as ``loaded``, any other as ``compiled``;
         tiles and buckets already captured are ``skipped``.  Each capture
         first runs its step eagerly on copies of the state, then captures.
-        On the CPU nothing is captured and every entry is ``skipped``.
+        On the CPU nothing is captured and every entry is ``skipped``; under
+        a mesh nothing is captured either, with a warning (the reference's
+        mesh fleets skip their AOT path too), and every count is 0.
         Returns ``{"loaded", "compiled", "skipped"}``."""
         stats = {"loaded": 0, "compiled": 0, "skipped": 0}
+        if self.mesh is not None:
+            warnings.warn("StreamingFleet.warmup: a mesh fleet's ranks step "
+                          "eagerly (no CUDA graphs)", stacklevel=2)
+            return stats
         if self._device.type != "cuda":
             stats["skipped"] = len(self.aot_entries(buckets))
             return stats
@@ -1126,17 +1290,18 @@ class StreamingFleet:
         def count(name: str) -> None:
             stats["loaded" if aot is not None and name in aot else "compiled"] += 1
 
-        for k, sl in enumerate(self._tile_slices):
-            for b in buckets or self._buckets:
-                if (k, b) in self._graphs:
-                    stats["skipped"] += 1
-                    continue
-                count(self._capture_step(k, b).name)
-            if self._am_counts0 is not None:
-                if k in self._adapt_graphs:
-                    stats["skipped"] += 1
-                else:
-                    count(self._capture_adapt(k).name)
+        for k, dev in enumerate(self._tile_devs):
+            with _on(dev):
+                for b in buckets or self._buckets:
+                    if (k, b) in self._graphs:
+                        stats["skipped"] += 1
+                        continue
+                    count(self._capture_step(k, b).name)
+                if self._am_counts0 is not None:
+                    if k in self._adapt_graphs:
+                        stats["skipped"] += 1
+                    else:
+                        count(self._capture_adapt(k).name)
         return stats
 
     @property
@@ -1212,7 +1377,8 @@ class StreamingFleet:
         the manifest meta.  ``aot_dir`` also writes the deploy artifact
         there (``save_aot``) and records its path and key as the
         manifest's ``aot`` entry (a relative path resolves against
-        ``root``).  Returns the checkpoint directory."""
+        ``root``).  Under a mesh every rank calls it: the blocks are
+        gathered and rank 0 writes.  Returns the checkpoint directory."""
         if step is None:
             latest = ckpt.latest_step(root)
             step = 0 if latest is None else latest + 1
@@ -1249,12 +1415,17 @@ class StreamingFleet:
             raise ValueError(
                 f"checkpoint does not match this fleet: {bad} "
                 "(saved, expected)")
-        full = ckpt.restore(root, step, like=self.state)
-        self._state_t = [FleetState(**{f.name: getattr(full, f.name)[sl]
+        # the full arrays on the host (every rank reads them), then each
+        # tile's rows this process holds (under a mesh its block) on the
+        # tile's device
+        host = ckpt.restore(root, step, like=FleetState(**{f.name: torch.empty(
+            (self._np, *getattr(self._state_t[0], f.name).shape[1:]),
+            dtype=torch.int32) for f in fields(FleetState)}))
+        self._state_t = [FleetState(**{f.name: getattr(host, f.name)[rows].to(dev)
                                        for f in fields(FleetState)})
-                         for sl in self._tile_slices]
-        self._filled_h = full.filled.cpu().numpy().astype(np.int64)
-        self._fidx_h = full.frame_index.cpu().numpy().astype(np.int64)
+                         for rows, dev in zip(self._rows_t, self._tile_devs)]
+        self._filled_h = host.filled.numpy().astype(np.int64)
+        self._fidx_h = host.frame_index.numpy().astype(np.int64)
         self._dirty_t = [True] * len(self._tile_slices)
         if self._masked:
             self._cmask_h[:] = 1

@@ -47,7 +47,12 @@ Warm-up
     and slot-read executables; here those are indexed row writes and reads
     queued on the stream, with nothing to capture.
 
-Every tile lives on the bank's one device.
+Tiles over the local devices
+    As in ``StreamingFleet``, tiles round-robin over the local devices of
+    the bank's type: a spilled tile lands on the next device and reuses
+    that device's copy of the tables; slot writes and reads, spills,
+    warm-ups, compaction and ``restore`` address the tile's device.  Mesh
+    sharding stays on ``StreamingFleet``, as in the reference.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from repro_torch.core.pipeline import HDCPipeline
 from repro_torch.serve.engine import FrameDecision, SessionSnapshot
 from repro_torch.serve.fleet import (_PACKED_LEAVES, DEFAULT_BUCKETS, FleetRound,
                                      FleetState, StreamingFleet, _artifact_for,
-                                     _host_state, _mask_from_meta, _mask_meta,
+                                     _host_state, _mask_from_meta, _mask_meta, _on,
                                      derive_tile)
 
 
@@ -243,12 +248,12 @@ class ElasticFleet(StreamingFleet):
                 rows, am_c, am_n, lastf, lasts, np.int32(snap.has_frame))
 
     def _reput_registers(self, k: int) -> None:
-        sl = self._tile_slices[k]
-        self._thresholds_t[k] = self._put(self._thr_h[sl])
-        self._param_owner_t[k] = self._put(self._prow_h[sl])
-        self._density_t[k] = self._put(self._dens_h[sl])
+        sl, dev = self._tile_slices[k], self._tile_devs[k]
+        self._thresholds_t[k] = self._put(self._thr_h[sl], device=dev)
+        self._param_owner_t[k] = self._put(self._prow_h[sl], device=dev)
+        self._density_t[k] = self._put(self._dens_h[sl], device=dev)
         if self._masked:
-            self._cmask_t[k] = self._put(self._cmask_h[sl], torch.int32)
+            self._cmask_t[k] = self._put(self._cmask_h[sl], torch.int32, dev)
 
     def _write_slot(self, slot: int, pid: Hashable,
                     snapshot: SessionSnapshot | None) -> None:
@@ -260,7 +265,8 @@ class ElasticFleet(StreamingFleet):
         rows = (self._fresh_rows(p) if snapshot is None
                 else self._snap_rows(snapshot))
         # packed words travel as their int32 carrier
-        dev_rows = [self._put(hv.to_i32(r) if r.dtype == np.uint32 else r)
+        dev_rows = [self._put(hv.to_i32(r) if r.dtype == np.uint32 else r,
+                              device=self._tile_devs[k])
                     for r in map(np.asarray, rows)]
         _slot_write(self._state_t[k], slot - sl.start, dev_rows)
         self._dirty_t[k] = True
@@ -321,6 +327,11 @@ class ElasticFleet(StreamingFleet):
         start = self._np
         sl = slice(start, start + t)
         self._tile_slices.append(sl)
+        self._rows_t.append(sl)
+        dev = self._devs[k % len(self._devs)]
+        self._tile_devs.append(dev)
+        if dev not in self._tables_dev:
+            self._tables_dev[dev] = self._tables.to(dev)
         # grow the host per-slot arrays by one tile of placeholder rows
         # (the first tile's pattern; admissions overwrite per slot)
         self._class_rows0 = np.concatenate(
@@ -347,7 +358,7 @@ class ElasticFleet(StreamingFleet):
                     self._density_t):
             lst.append(None)            # likewise
         self._reput_registers(k)
-        self._state_t.append(self._zero_state(sl))
+        self._state_t.append(self._zero_state(k))
         self._stage_t.append({})
         self._stage_done_t.append({})
         self._dirty_t.append(True)
@@ -363,12 +374,13 @@ class ElasticFleet(StreamingFleet):
         """Capture tile ``k``'s step at every bucket, and its adapt, unless
         captured already (a tile index compaction dropped keeps its
         graphs): a warmed fleet's spilled tile is captured before its first
-        step."""
-        for b in self._buckets:
-            if (k, b) not in self._graphs:
-                self._capture_step(k, b)
-        if self._am_counts0 is not None and k not in self._adapt_graphs:
-            self._capture_adapt(k)
+        step, on its device."""
+        with _on(self._tile_devs[k]):
+            for b in self._buckets:
+                if (k, b) not in self._graphs:
+                    self._capture_step(k, b)
+            if self._am_counts0 is not None and k not in self._adapt_graphs:
+                self._capture_adapt(k)
 
     def _drop_last_tile(self) -> None:
         """Drop the trailing tile (it must hold no live session), with its
@@ -377,9 +389,9 @@ class ElasticFleet(StreamingFleet):
         sl = self._tile_slices[k]
         if any(slot in self._slot_sid for slot in range(sl.start, sl.stop)):
             raise RuntimeError("dropping a tile with live sessions")
-        for lst in (self._tile_slices, self._state_t, self._thresholds_t,
-                    self._param_owner_t, self._density_t, self._stage_t,
-                    self._stage_done_t, self._dirty_t, self._free):
+        for lst in (self._tile_slices, self._rows_t, self._tile_devs, self._state_t,
+                    self._thresholds_t, self._param_owner_t, self._density_t,
+                    self._stage_t, self._stage_done_t, self._dirty_t, self._free):
             lst.pop()
         if self._masked:
             self._cmask_t.pop()

@@ -477,7 +477,8 @@ def _drops(ids: np.ndarray, n_experts: int, cap: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dispatch,capacity", [("dense", 8.0), ("index", 8.0),
-                                               ("index", 0.25)])
+                                               ("index", 0.25), ("local_index", 8.0),
+                                               ("local_index", 0.25)])
 def test_moe_layer_matches_reference(monkeypatch, dispatch, capacity):
     """Output and load-balance loss at ``rtol=2e-4, atol=2e-5``, routed ids
     equal; at capacity 0.25 tokens are dropped, the same ones (a different
@@ -526,7 +527,13 @@ def test_route_ties_order_by_expert_id():
 
 
 def test_local_index_dispatch_raises():
+    """``local_index`` over a mesh waits for the LM-on-a-mesh slice and says
+    so; without one it computes (``test_moe_layer_matches_reference``)."""
+    from repro_torch.runtime.sharding import ShardCtx
+
     cfg = _tcfg("deepseek-moe-16b", moe_dispatch="local_index")
     _, tw = _weights(j_moe.moe_spec(_jcfg("deepseek-moe-16b")))
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        moe.moe_layer(tw, torch.zeros(1, 4, cfg.d_model), cfg)
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="next slice of the port, the LM on a mesh"):
+        moe.moe_layer(tw, x, cfg, ShardCtx(mesh=object(), rules={"batch": ("data",)}))
+    assert moe.moe_layer(tw, x, cfg, ShardCtx(None))[0].shape == x.shape

@@ -86,6 +86,27 @@ def test_fail_at_resumes_to_the_straight_runs_loss(tmp_path, capsys):
     assert [ln.split()[1] for ln in failed.splitlines()[-5:-1]] == ["4", "5", "6", "7"]
 
 
+def test_a_failed_attempts_checkpoint_lands_before_the_restart(tmp_path, capsys,
+                                                               monkeypatch):
+    """The step-4 checkpoint is still being written (a slow disk) when step
+    5 fails: the restart waits for it and resumes from step 4, not 2."""
+    import time
+
+    write = ckpt._write
+
+    def slow(*a, **k):
+        time.sleep(0.5)
+        write(*a, **k)
+
+    monkeypatch.setattr(ckpt, "_write", slow)
+    d = str(tmp_path)
+    train.main(BASE + ["--steps", "6", "--ckpt-every", "2", "--fresh", "--ckpt-dir", d,
+                       "--fail-at", "5"])
+    out = capsys.readouterr().out
+    assert f"[resume] restored step 4 from {d}" in out
+    assert ckpt.list_steps(d) == [2, 4, 6]
+
+
 def _args(argv: list) -> argparse.Namespace:
     return train.parser().parse_args(argv)
 
