@@ -166,7 +166,27 @@ Phases (one line each, any failure exits non-zero):
    unsharded CLI; (c) four tiles of 256 over the card list and over a
    patched ``[cuda:0, cuda:0]``: fixed fleets eager and warmed, an elastic
    fleet through spills, eviction, compaction, save and
-   ``from_checkpoint``, each equal to one device.
+   ``from_checkpoint``, each equal to one device;
+15. the LM on a mesh (run last; no kernel: the LM is plain PyTorch on
+   ``torch.distributed.tensor``, and the five kernels' launches over the
+   phase must be 0): a one-rank NCCL mesh, ``make_mesh((1, 1), ("data",
+   "model"))``, against the unsharded port on the same card: (a) float32
+   (TF32 off), qwen3-0.6b at full width cut to 2 layers: two sharded train
+   steps against two unsharded steps (losses within 1e-5, every parameter
+   within 1e-2 of its leaf's largest update), prefill of 2 x 64 tokens and
+   8 greedy steps with and without ``seq_sharded_kv`` (tokens equal,
+   logits within 1e-3); (b) deepseek-moe-16b at full width cut to 2
+   layers, ``local_index``, float32: prefill and 8 greedy steps (tokens
+   equal, routed ids equal but for counted near-ties); (c) qwen3-0.6b
+   whole in bf16 (remat, float32 AdamW state, batch 4 x 512): 5 sharded
+   and 5 unsharded steps from one draw in turns (losses within 1e-2
+   relative), one profiled step each way, then prefill of 4 x 512 and 32
+   decode steps each way, timed, and peak memory; (d) ``launch/train.py
+   --reduced --mesh 1x1`` for 4 steps with checkpoints, resumed on
+   ``--mesh 1`` to 8 (restored step 4, the final loss within 1e-5 of the
+   same two runs unsharded), and ``launch/serve.py --arch qwen3-0.6b
+   --reduced --mesh 1x1 --seq-sharded-kv`` (the unsharded CLI's greedy
+   ids), under ``torch.distributed.run --nproc-per-node 1``.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -176,7 +196,8 @@ call is profiled (it must run exactly one device kernel) and timed against
 the old chain.  Each path's kernel launches are counted from zero just
 before it and read just after.
 The line before the last is a JSON object with every kernel's launches
-over the paths, times and bound; the last line is the device summary.
+over the paths, times and bound, and phase 15's numbers (``lm_mesh``);
+the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -265,6 +286,7 @@ PATH_KERNELS = {
     "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
     "deploy": ("hdc_fleet",),
     "mesh": ("hdc_fleet",),
+    "lm_mesh": (),          # the LM path launches none of the five kernels
 }
 
 
@@ -4033,6 +4055,398 @@ def train_phase(tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the LM on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) float32 (TF32 off), qwen3-0.6b at full width cut to 2 layers: two
+# sharded train steps against two unsharded steps (phase 13's bounds), then
+# prefill of 2 x 64 and 8 greedy steps with and without seq_sharded_kv
+MESH_LM_ARCH, MESH_LM_LAYERS = "qwen3-0.6b", 2
+MESH_LM_TRAIN = (2, 128)                 # batch, seq of (a)'s train steps
+MESH_LM_PROMPT, MESH_LM_GEN = 64, 8      # (a) and (b): 2 x 64 prompts, 8 greedy steps
+# (b) deepseek-moe-16b at full width cut to 2 layers, local_index, float32
+MESH_MOE_ARCH = "deepseek-moe-16b"
+# (c) qwen3-0.6b whole in bf16 (remat, float32 AdamW state), batch 4 x 512:
+# MESH_FULL_STEPS steps each way in turns, then prefill of 4 x 512 and
+# MESH_FULL_GEN decode steps each way
+MESH_FULL_STEPS, MESH_FULL_GEN = 5, 32
+MESH_FULL_LOSS_RTOL = 1e-2
+MESH_CLI_TIMEOUT = 300
+LM_MESH_DEVICE = "cuda"     # the phase's device (a CPU rehearsal sets "cpu")
+
+
+def _host(x) -> torch.Tensor:
+    """A tensor (a DTensor gathered whole) as a float32 CPU tensor."""
+    if hasattr(x, "full_tensor"):
+        x = x.full_tensor()
+    return x.detach().float().cpu()
+
+
+def _sync() -> None:
+    if LM_MESH_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+class _MeshRouteLog(_RouteLog):
+    """``_RouteLog`` whose routed ids and router probabilities may be
+    DTensors: each call gathers its ids and top-k margins on the host."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls = []
+        self._moe, orig = moe, moe._route
+
+        def route(p, xf, cfg):
+            out = orig(p, xf, cfg)
+            probs = _host(torch.softmax((xf @ p["router"]).float(), dim=-1))
+            top = probs.topk(cfg.experts_per_token + 1, dim=-1).values
+            self.calls.append((_host(out[1]).long(), top[:, -2] - top[:, -1]))
+            return out
+
+        self._orig, moe._route = orig, route
+        return self
+
+
+def _mesh_greedy(prefill, decode, params, batch: dict, pos0: int, steps: int,
+                 feed=None) -> dict:
+    """``_greedy`` over step functions (``decode(params, tok, caches, pos)``)
+    that may place their inputs: every step's logits and the greedy tokens
+    on the host; ``feed``: (B, steps + 1) tokens to decode instead."""
+    logits, caches = prefill(params, batch)
+    out = [_host(logits)]
+    toks = [out[-1].argmax(-1)[:, None].to(torch.int32)]
+    dev = batch["tokens"].device
+    for i in range(steps):
+        tok = toks[-1] if feed is None else feed[:, i:i + 1]
+        logits, caches = decode(params, tok.to(dev), caches, pos0 + i)
+        out.append(_host(logits))
+        toks.append(out[-1].argmax(-1)[:, None].to(torch.int32))
+    return {"logits": out, "tokens": torch.cat(toks, 1)}
+
+
+def _mesh_serve_check(tag: str, what: str, cfg, params, mesh, *, seq_sharded_kv: bool,
+                      tie=None) -> dict:
+    """Prefill of 2 x MESH_LM_PROMPT and MESH_LM_GEN greedy steps, unsharded
+    and then on the mesh fed the unsharded tokens: tokens equal, logits
+    within LM_CHECK_TOL (atol and rtol), routed ids (``tie``) equal but for
+    counted near-ties."""
+    from repro_torch.runtime import steps as steps_mod
+
+    g = torch.Generator(device=LM_MESH_DEVICE).manual_seed(SEED + 150)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, MESH_LM_PROMPT), generator=g,
+                                     device=LM_MESH_DEVICE, dtype=torch.int32)}
+    seq = MESH_LM_PROMPT + MESH_LM_GEN
+    with _MeshRouteLog() as r_plain:
+        plain = _mesh_greedy(steps_mod.make_prefill(cfg, seq), steps_mod.make_decode_step(cfg),
+                             params, batch, MESH_LM_PROMPT, MESH_LM_GEN)
+    prefill, _, _ = steps_mod.jit_prefill(cfg, mesh, batch, seq, seq_sharded_kv=seq_sharded_kv)
+    built: dict = {}
+
+    def decode(p, tok, caches, pos):
+        if not built:                    # jit_decode_step reads the caches' shapes
+            built["fn"] = steps_mod.jit_decode_step(
+                cfg, mesh, {"tokens": tok, "caches": caches},
+                seq_sharded_kv=seq_sharded_kv)[0]
+        return built["fn"](p, tok, caches, pos)
+
+    with _MeshRouteLog() as r_mesh:
+        sharded = _mesh_greedy(prefill, decode, params, batch, MESH_LM_PROMPT, MESH_LM_GEN,
+                               feed=plain["tokens"])
+    expect(torch.equal(sharded["tokens"], plain["tokens"]),
+           f"{tag} {what}: greedy tokens differ on the mesh")
+    diff = max(float((a - b).abs().max()) for a, b in zip(sharded["logits"], plain["logits"]))
+    excess = max(float(((a - b).abs() - LM_CHECK_TOL * b.abs()).max())
+                 for a, b in zip(sharded["logits"], plain["logits"]))
+    expect(excess <= LM_CHECK_TOL, f"{tag} {what}: logits differ by {diff:.3g} (past rtol "
+                                   f"{LM_CHECK_TOL} by {excess:.3g})")
+    out = {"what": what, "tokens_equal": True, "max_abs_logit_diff": diff}
+    if tie is not None:
+        slots, flips, margin = _route_flips(f"{tag} {what}", r_mesh.calls, r_plain.calls, tie)
+        out.update(routed_slots=slots, routed_flips=flips, flip_margin=margin)
+    log(f"[{tag}] {what}: prefill 2 x {MESH_LM_PROMPT} and {MESH_LM_GEN} greedy steps on the "
+        f"mesh equal to unsharded (max |logit diff| {diff:.3g})"
+        + (f"; routed ids: {out['routed_flips']} of {out['routed_slots']} slots differ"
+           if tie is not None else ""))
+    return out
+
+
+def lm_mesh_float32(tag: str, mesh) -> dict:
+    """(a) and (b): float32, TF32 off, weights drawn on the phase's device."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import flatten, initialize, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps as steps_mod
+
+    dev = LM_MESH_DEVICE
+    cfg = dataclasses.replace(get_config(MESH_LM_ARCH), n_layers=MESH_LM_LAYERS,
+                              dtype="float32", remat=False)
+    params = initialize(torch.Generator(device=dev).manual_seed(SEED), model_spec(cfg),
+                        torch.float32, dev)
+    opt = adamw.OptConfig(**TRAIN_CHECK_OPT)
+    b, l = MESH_LM_TRAIN
+    batch = lmdata.batch_for_step(cfg, lmdata.ShapeSpec("train", l, b, "train"), 0, device=dev)
+    plain_step = steps_mod.make_train_step(cfg, opt)
+    mesh_step, ctx, _ = steps_mod.jit_train_step(cfg, opt, mesh, batch)
+    p0 = {k: v.detach().float().cpu() for k, v in flatten(params).items()}
+    pp = tree_map(torch.clone, params)
+    pm = tree_map(shd.place, tree_map(torch.clone, params),
+                  shd.tree_shardings(model_spec(cfg), ctx))
+    sp, sm = adamw.init_state(pp, opt, device=dev), adamw.init_state(pm, opt, device=dev)
+    losses = []
+    for i in range(2):
+        pp, sp, lp, _ = plain_step(pp, sp, batch)
+        pm, sm, lm, _ = mesh_step(pm, sm, batch)
+        a, c = float(_host(lm)), float(lp)
+        losses.append((a, c))
+        expect(abs(a - c) <= TRAIN_LOSS_RTOL * abs(c),
+               f"{tag} train step {i}: mesh loss {a} against unsharded {c}")
+    worst = 0.0
+    flat_m = flatten(pm)
+    for k, v in flatten(pp).items():
+        update = float((v.float().cpu() - p0[k]).abs().max())
+        err = float((_host(flat_m[k]) - v.float().cpu()).abs().max())
+        worst = max(worst, err / max(update, 1e-12))
+    expect(worst <= TRAIN_STEP_TOL, f"{tag} train: a parameter {worst:.3g} of its leaf's "
+                                    f"largest update from the unsharded run")
+    log(f"[{tag}] (a) {MESH_LM_ARCH} full width x {MESH_LM_LAYERS} layers, float32: two "
+        f"train steps of {b} x {l} on the mesh against unsharded, losses "
+        + ", ".join(f"{x:.6f}/{y:.6f}" for x, y in losses)
+        + f"; every parameter within {worst:.3g} of its leaf's largest update")
+    out = {"train_losses": losses, "train_param_excess": worst}
+    del pp, pm, sp, sm, flat_m
+    out["serve"] = [_mesh_serve_check(tag, "(a) serve", cfg, params, mesh, seq_sharded_kv=False),
+                    _mesh_serve_check(tag, "(a) serve, seq_sharded_kv", cfg, params, mesh,
+                                      seq_sharded_kv=True)]
+    del params
+    moe_cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), n_layers=MESH_LM_LAYERS,
+                                  dtype="float32", moe_dispatch="local_index")
+    mparams = initialize(torch.Generator(device=dev).manual_seed(SEED + 1),
+                         model_spec(moe_cfg), torch.float32, dev)
+    out["moe"] = _mesh_serve_check(tag, f"(b) {MESH_MOE_ARCH} x {MESH_LM_LAYERS}, local_index",
+                                   moe_cfg, mparams, mesh, seq_sharded_kv=False,
+                                   tie=_lm_arch(MESH_MOE_ARCH).tie)
+    del mparams
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_full(tag: str, mesh) -> dict:
+    """(c) qwen3-0.6b whole in bf16 from one draw: MESH_FULL_STEPS train
+    steps each way in turns (losses within MESH_FULL_LOSS_RTOL), one
+    profiled step each way, then from each way's trained weights prefill of
+    TRAIN_BATCH x TRAIN_SEQ and MESH_FULL_GEN greedy steps; peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import initialize, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps as steps_mod
+
+    dev = LM_MESH_DEVICE
+    cfg = get_config(TRAIN_ARCH)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    spec = model_spec(cfg)
+    params = initialize(torch.Generator(device=dev).manual_seed(SEED), spec,
+                        getattr(torch, cfg.dtype), dev)
+    opt = adamw.OptConfig(total_steps=MESH_FULL_STEPS,
+                          warmup_steps=max(MESH_FULL_STEPS // 10, 1))
+    batch = lmdata.batch_for_step(cfg, lmdata.ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                        "train"), 0, device=dev)
+    mesh_step, ctx, _ = steps_mod.jit_train_step(cfg, opt, mesh, batch)
+    run = {"mesh": {"params": tree_map(shd.place, tree_map(torch.clone, params),
+                                       shd.tree_shardings(spec, ctx)), "step": mesh_step},
+           "plain": {"params": tree_map(torch.clone, params),
+                     "step": steps_mod.make_train_step(cfg, opt)}}
+    for r in run.values():
+        r.update(state=adamw.init_state(r["params"], opt, device=dev), losses=[], ms=[])
+    del params
+
+    def one(name):
+        r = run[name]
+        r["params"], r["state"], loss, _ = r["step"](r["params"], r["state"], batch)
+        r["losses"].append(float(_host(loss)))
+
+    for name in (["mesh", "plain", "plain", "mesh"] * MESH_FULL_STEPS)[:2 * MESH_FULL_STEPS]:
+        _sync()
+        t0 = time.perf_counter()
+        one(name)
+        run[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+    for i, (a, c) in enumerate(zip(run["mesh"]["losses"], run["plain"]["losses"])):
+        expect(abs(a - c) <= MESH_FULL_LOSS_RTOL * abs(c),
+               f"{tag} (c) step {i}: mesh loss {a} against unsharded {c}")
+    prof = {name: _profiled(lambda name=name: one(name)) for name in ("mesh", "plain")}
+    train_peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else float("nan")
+    out = {"losses": {k: v["losses"] for k, v in run.items()},
+           "step_ms": {k: v["ms"] for k, v in run.items()},
+           "step_median_ms": {k: float(np.median(v["ms"][1:])) for k, v in run.items()},
+           "profiled": {k: {kk: v[kk] for kk in ("wall_ms", "busy_ms", "idle", "kernels")}
+                        for k, v in prof.items()},
+           "train_peak_gb": train_peak}
+    weights = {k: v["params"] for k, v in run.items()}
+    del run
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    prompt = {"tokens": batch["tokens"]}
+    seq = TRAIN_SEQ + MESH_FULL_GEN
+    prefills = {"mesh": steps_mod.jit_prefill(cfg, mesh, prompt, seq)[0],
+                "plain": steps_mod.make_prefill(cfg, seq)}
+    serve = {}
+    for name in ("plain", "mesh"):
+        _sync()
+        t0 = time.perf_counter()
+        logits, caches = prefills[name](weights[name], prompt)
+        _sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = _host(logits).argmax(-1)[:, None].to(torch.int32).to(dev)
+        decode = (steps_mod.jit_decode_step(cfg, mesh, {"tokens": tok, "caches": caches})[0]
+                  if name == "mesh" else steps_mod.make_decode_step(cfg))
+        ms = []
+        for i in range(MESH_FULL_GEN):
+            t0 = time.perf_counter()
+            logits, caches = decode(weights[name], tok, caches, TRAIN_SEQ + i)
+            tok = _host(logits).argmax(-1)[:, None].to(torch.int32).to(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        expect(bool(torch.isfinite(_host(logits)).all()), f"{tag} (c) {name}: logits")
+        serve[name] = {"prefill_ms": prefill_ms, "decode_ms": ms,
+                       "decode_median_ms": float(np.median(ms[1:]))}
+        del caches
+    out["serve"] = serve
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else float("nan")
+    log(f"[{tag}] (c) {TRAIN_ARCH} whole, bf16, remat, float32 AdamW state, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {MESH_FULL_STEPS} steps each way in turns: step median "
+        f"mesh {out['step_median_ms']['mesh']:.3f} ms, unsharded "
+        f"{out['step_median_ms']['plain']:.3f} ms; losses mesh "
+        + ", ".join(f"{x:.4f}" for x in out["losses"]["mesh"]) + ", unsharded "
+        + ", ".join(f"{x:.4f}" for x in out["losses"]["plain"])
+        + "; profiled step: " + "; ".join(
+            f"{k} {v['wall_ms']:.3f} ms, busy {v['busy_ms']:.3f} ms, idle {v['idle']:.1%}, "
+            f"{v['kernels']} kernels" for k, v in out["profiled"].items())
+        + f"; prefill of {TRAIN_BATCH} x {TRAIN_SEQ}: mesh {serve['mesh']['prefill_ms']:.3f} "
+        f"ms, unsharded {serve['plain']['prefill_ms']:.3f} ms; decode step median mesh "
+        f"{serve['mesh']['decode_median_ms']:.3f} ms, unsharded "
+        f"{serve['plain']['decode_median_ms']:.3f} ms; peak {out['peak_gb']:.2f} GB "
+        f"(training {train_peak:.2f}) ({CARD})")
+    del weights
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _torchrun(args: list, env: dict, what: str, module: str) -> tuple[str, float]:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    <module> <args>``."""
+    return _cli(["--standalone", "--nproc-per-node", "1", "-m", module, *args], env, what,
+                MESH_CLI_TIMEOUT, module="torch.distributed.run")
+
+
+def lm_mesh_cli(tag: str) -> dict:
+    """(d) the launchers under ``torch.distributed.run --nproc-per-node 1``:
+    train on ``--mesh 1x1`` for 4 steps with checkpoints, resumed on
+    ``--mesh 1`` to 8 (restored step 4; the final loss within 1e-5 of the
+    same two invocations unsharded), and serve with ``--mesh 1x1
+    --seq-sharded-kv`` printing the unsharded launcher's greedy ids.  The
+    serving rank runs beside the training ranks, and the unsharded runs
+    in this process (``train.main``, ``serve.run_lm``) meanwhile."""
+    import argparse
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dev = [] if LM_MESH_DEVICE == "cuda" else ["--device", "cpu"]
+    base = ["--arch", "qwen3-0.6b", "--reduced", "--ckpt-every", "2", "--batch", "2",
+            "--seq", "32", *dev]
+    args = ["--arch", "qwen3-0.6b", "--reduced", "--prompt-len", "32", "--gen", "8", *dev]
+    t_serve = time.perf_counter()
+    serving = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "repro_torch.launch.serve", *args, "--mesh", "1x1", "--seq-sharded-kv"],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        tr = "repro_torch.launch.train"
+        with tempfile.TemporaryDirectory() as tmp:
+            m, a = f"{tmp}/mesh", f"{tmp}/plain"
+            _, s1 = _torchrun(base + ["--steps", "4", "--fresh", "--mesh", "1x1", "--ckpt-dir",
+                                      m], env, "train --mesh 1x1", tr)
+            resumed, s2 = _torchrun(base + ["--steps", "8", "--mesh", "1", "--ckpt-dir", m],
+                                    env, "train --mesh 1 (resumed)", tr)
+            plain = io.StringIO()
+            with contextlib.redirect_stdout(plain):
+                train_mod.main(base + ["--steps", "4", "--fresh", "--ckpt-dir", a])
+                train_mod.main(base + ["--steps", "8", "--ckpt-dir", a])
+                serve_mod.run_lm(argparse.Namespace(
+                    arch="qwen3-0.6b", reduced=True, batch=2, prompt_len=32, gen=8, mesh=None,
+                    seq_sharded_kv=False, device=dev[1] if dev else None))
+        sharded, _ = serving.communicate(timeout=MESH_CLI_TIMEOUT)
+    finally:
+        if serving.poll() is None:
+            serving.kill()
+            serving.wait()
+    s3 = time.perf_counter() - t_serve
+    expect(serving.returncode == 0, f"serve --mesh exited {serving.returncode}:\n{sharded[-3000:]}")
+    expect("[resume] restored step 4" in resumed,
+           f"train --mesh 1 did not resume from step 4:\n{resumed[-2000:]}")
+    plain = plain.getvalue()
+    lm, lp = _done_loss(resumed), _done_loss(plain)
+    expect(abs(lm - lp) < 1e-5, f"train on a mesh: final_loss {lm} against unsharded {lp}")
+
+    def ids(out):
+        return re.findall(r"\[(\d)\] \[([\d, ]+)\]", out)
+
+    expect(ids(sharded) == ids(plain) and len(ids(plain)) == 2,
+           f"serve --mesh: greedy ids {ids(sharded)} against unsharded {ids(plain)}")
+    out = {"train_final_loss": lm, "plain_final_loss": lp, "train_s": s1, "resume_s": s2,
+           "serve_s": s3}
+    log(f"[{tag}] (d) CLI: train --mesh 1x1, 4 steps ({s1:.1f} s), resumed on --mesh 1 from "
+        f"step 4 to 8 ({s2:.1f} s): final_loss {lm:.4f}, unsharded {lp:.4f}; serve --mesh 1x1 "
+        f"--seq-sharded-kv beside them ({s3:.1f} s): greedy ids equal to the unsharded "
+        f"launcher's")
+    return out
+
+
+def lm_mesh_phase(tag: str) -> dict:
+    """Phase 15: the LM on a one-rank NCCL mesh, ``make_mesh((1, 1),
+    ("data", "model"))`` (the group ``cpu:gloo,cuda:nccl`` at world size 1),
+    held against the unsharded port on the same card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     device=None if LM_MESH_DEVICE == "cuda" else "cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out = {"float32": lm_mesh_float32(tag, mesh)}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        out["full"] = lm_mesh_full(tag, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = lm_mesh_cli(tag)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4211,8 +4625,20 @@ def main() -> int:
          "full": {k: v for k, v in train["full"].items() if k != "step_ms"},
          "ssm": train["ssm"], "cli": {k: v for k, v in train["cli"].items() if k != "full_steps"},
          "phase_s": train["phase_s"]}))
+    # phase 15: the LM on a mesh
+    launches.start()
+    lm_mesh = lm_mesh_phase("lm_mesh")
+    launches.stop("lm_mesh")
+    expect(not any(launches.paths["lm_mesh"].values()),
+           f"lm_mesh: the LM path launched {launches.paths['lm_mesh']}")
+    for row in rows:
+        row["path_launches"]["lm_mesh"] = launches.paths["lm_mesh"][row["name"]]
+    summary = {"float32": lm_mesh["float32"], "cli": lm_mesh["cli"],
+               "full": {k: v for k, v in lm_mesh["full"].items() if k != "step_ms"},
+               "phase_s": lm_mesh["phase_s"], "card": CARD}
+    log("[lm_mesh] " + json.dumps(summary))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "lm_mesh": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -215,27 +215,43 @@ def leaf_files(root: str, step: int) -> dict[str, str]:
 
 
 class AsyncCheckpointer:
-    """Snapshot on the caller thread, write on a background thread."""
+    """Snapshot on the caller thread, write on a background thread.
+
+    In a group of several ranks every rank calls ``save_async`` at the same
+    steps: sharded leaves are gathered on the caller thread (a collective
+    of every rank), rank 0 writes in the background, and ``wait`` (which
+    the next ``save_async`` calls first) returns on every rank once the
+    write has landed, so a restart on any rank finds it."""
 
     def __init__(self, root: str, keep: int = 3):
         self.root = root
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._pending = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending and _world() > 1:
+            _barrier()
+        self._pending = False
 
     def save_async(self, step: int, tree: Any, meta: dict | None = None):
         self.wait()
+        tree = _map(lambda _, leaf: leaf.full_tensor() if isinstance(leaf, DTensor)
+                    else leaf, tree)
         host_tree = _map(lambda _, leaf: _host(leaf, copy=True), tree)
+        self._pending = True
+        if _world() > 1 and dist.get_rank() != 0:
+            return
+        final = os.path.join(self.root, f"step_{step:08d}")
 
-        def _write():
-            save(self.root, step, host_tree, meta)
+        def _write_step():
+            _write(final, step, host_tree, meta, None, None)
             _gc(self.root, self.keep)
 
-        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread = threading.Thread(target=_write_step, daemon=True)
         self._thread.start()
 
 

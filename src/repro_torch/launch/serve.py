@@ -44,8 +44,15 @@ A fleet over several cards, one process a card (an SPMD mesh fleet:
       -m repro_torch.launch.serve --hdc-fleet --mesh 4 --sessions 1024
 ``--mesh`` with ``--device cpu`` runs the ranks on the CPU over gloo.
 ``compile --mesh`` is refused (the deploy artifact warms one process's
-tiles), and so are ``--mesh`` for the LM and ``--seq-sharded-kv`` until
-the LM-on-a-mesh slice of the port.
+tiles).
+
+An LM over a mesh of ranks (the weights placed by ``tree_shardings``, the
+prompt by ``batch_shardings``, the caches by ``cache_shardings``;
+``--seq-sharded-kv`` shards the caches' sequence over the data axes
+instead of the batch; rank 0 prints):
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch qwen3-0.6b --reduced --device cpu \
+      --mesh 2 --seq-sharded-kv
 """
 
 from __future__ import annotations
@@ -295,53 +302,67 @@ def run_hdc_fleet(args, t_start: float) -> None:
 def run_lm(args) -> None:
     """Prefill a synthetic prompt, then decode ``--gen - 1`` greedy tokens
     after the first, printing the prefill time, the decode time and rate,
-    and the generated token ids (the reference's ``run_lm``)."""
+    and the generated token ids (the reference's ``run_lm``).  With
+    ``--mesh`` every rank runs it (``jit_prefill``/``jit_decode_step``
+    place the weights, the prompt and the caches) and rank 0 prints."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import lm as lmdata
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.launch.train import parse_mesh
     from repro_torch.models.model import LanguageModel
     from repro_torch.runtime import steps as steps_mod
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    dev = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, device=args.device)  # sets this rank's card
+    dev = mesh_device(mesh) if mesh is not None else resolve_device(args.device)
     cache_seq = args.prompt_len + args.gen
     shape = lmdata.ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
     batch = lmdata.synth_batch(torch.Generator(device=dev).manual_seed(0), cfg, shape)
-    model = LanguageModel.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    prefill_fn, ctx, _ = steps_mod.jit_prefill(cfg, mesh, batch, cache_seq,
+                                               seq_sharded_kv=args.seq_sharded_kv)
+    model = LanguageModel.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev,
+                               ctx=ctx)
     params = model.params()
-    prefill_fn = steps_mod.make_prefill(cfg, cache_seq)
-    decode_fn = steps_mod.make_decode_step(cfg)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def greedy(logits):
+        # the pick reads the whole vocabulary row: a tp-sharded row is gathered
+        if hasattr(logits, "full_tensor"):
+            logits = logits.full_tensor()
+        return logits.argmax(-1)[:, None].to(torch.int32)
+
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
-    print(f"prefill: {args.batch} x {args.prompt_len} tokens in "
-          f"{t_prefill * 1e3:.1f} ms")
+    say(f"prefill: {args.batch} x {args.prompt_len} tokens in "
+        f"{t_prefill * 1e3:.1f} ms")
 
     n_media = cfg.num_media_tokens if cfg.family == "vlm" else 0
     pos0 = batch["tokens"].shape[1] + n_media
-    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    tok = greedy(logits)
+    decode_fn, _, _ = steps_mod.jit_decode_step(cfg, mesh, {"tokens": tok, "caches": caches},
+                                                seq_sharded_kv=args.seq_sharded_kv)
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
         logits, caches = decode_fn(params, tok, caches, pos0 + i)
-        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        tok = greedy(logits)
         out_tokens.append(tok)
     sync()
     t_dec = time.perf_counter() - t0
     gen = torch.cat(out_tokens, dim=1).cpu()
-    print(f"decode: {args.gen - 1} steps in {t_dec * 1e3:.1f} ms "
-          f"({(args.gen - 1) * args.batch / max(t_dec, 1e-9):.1f} tok/s)")
-    print("generated token ids (greedy):")
+    say(f"decode: {args.gen - 1} steps in {t_dec * 1e3:.1f} ms "
+        f"({(args.gen - 1) * args.batch / max(t_dec, 1e-9):.1f} tok/s)")
+    say("generated token ids (greedy):")
     for b in range(min(args.batch, 4)):
-        print(f"  [{b}] {gen[b].tolist()}")
+        say(f"  [{b}] {gen[b].tolist()}")
 
 
 def main():
@@ -360,11 +381,13 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--mesh", default=None,
-                    help="with --hdc-fleet: shard the fleet over a mesh of the "
-                         "torch.distributed.run ranks ('4', '2x2' or '2x2x2'; "
-                         "axes data, data/model, pod/data/model)")
+                    help="shard the fleet (--hdc-fleet) or the LM (--arch) over a "
+                         "mesh of the torch.distributed.run ranks ('4', '2x2' or "
+                         "'2x2x2'; axes data, data/model, pod/data/model)")
     ap.add_argument("--seq-sharded-kv", action="store_true",
-                    help="refused until the LM-on-a-mesh slice of the port")
+                    help="with --arch --mesh: shard the caches' sequence over the "
+                         "data axes (batch unsharded), for long prompts at small "
+                         "batches")
     ap.add_argument("--hdc-fleet", action="store_true",
                     help="serve the HDC seizure-detection streaming fleet")
     ap.add_argument("--device", default=None,
@@ -401,26 +424,21 @@ def main():
                     help="deploy-artifact directory (runtime/aot.py): "
                          "`compile` writes it, `serve` warms the fleet from it")
     args = ap.parse_args()
-    if args.seq_sharded_kv or (args.mesh and not args.hdc_fleet
-                               and args.command != "compile"):
-        ap.error("--mesh for the LM and --seq-sharded-kv place the LM on several "
-                 "cards, which comes with the next slice of the port (the LM on a "
-                 "mesh); --hdc-fleet --mesh runs the fleet over several cards")
     if args.command == "compile":
         run_hdc_compile(args)
         return
-    if args.hdc_fleet:
-        try:
-            run_hdc_fleet(args, t_start)
-        finally:
-            import torch.distributed as dist
-
-            if dist.is_initialized():  # a --mesh run's group
-                dist.destroy_process_group()
-        return
-    if not args.arch:
+    if not args.hdc_fleet and not args.arch:
         ap.error("--arch is required (or pass --hdc-fleet)")
-    run_lm(args)
+    try:
+        if args.hdc_fleet:
+            run_hdc_fleet(args, t_start)
+        else:
+            run_lm(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():  # a --mesh run's group
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,17 +16,25 @@
   the restore too, so they begin again at step 0.)
 * **Gradient compression**: ``--grad-compress`` runs the int8
   error-feedback round trip (``optim/compress.py``) before the update.
+* **Elastic scaling**: ``--mesh`` (``1x2``, ``2x2`` ... ``2x16x16``) trains
+  over a mesh of the ``torch.distributed.run`` ranks, one process a card:
+  the weights and the AdamW state placed by ``tree_shardings``, each batch
+  by ``batch_shardings`` (``runtime/steps.py::jit_train_step``).  A
+  checkpoint holds full arrays, so a restart restores it onto whatever
+  mesh it has (``ckpt.restore(shardings=)``: 1x2 to 2x1).  Rank 0 prints
+  and writes the checkpoints.
 
-``--device cpu`` runs the plain path on the CPU (the tests use it);
-without it the run takes the CUDA card and raises without one.
-``--mesh`` (training over several cards) is refused until the LM-on-a-mesh
-slice of the port; ``parse_mesh`` is the mesh flag's parser, which the
-fleet's launcher (``launch/serve.py --hdc-fleet --mesh``) uses already.
+``--device cpu`` runs the plain path on the CPU (the tests use it; with
+``--mesh``, the ranks over gloo); without it the run takes the CUDA card
+(each rank ``cuda:{LOCAL_RANK}``) and raises without one.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 20 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 5 --batch 4 --seq 512
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch qwen3-0.6b --reduced --device cpu \\
+      --mesh 1x2 --steps 8 --ckpt-dir /tmp/ckpt
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import shutil
 import time
 
 import torch
+import torch.distributed as dist
 
 
 MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
@@ -56,44 +65,66 @@ def parse_mesh(s: str | None, device=None):
     return make_mesh(dims, MESH_AXES[len(dims)], device=device)
 
 
+def say(*parts, **kw) -> None:
+    """``print`` on rank 0 only (every rank of a mesh runs the loop)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*parts, **kw)
+
+
 def train_loop(args) -> dict:
+    """The reference's ``train_loop``: on ``--mesh``, over the process
+    group ``parse_mesh`` joins (or makes); ``main`` destroys it."""
     from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.configs.registry import get_config
     from repro_torch.data import lm as lmdata
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import mesh_device
     from repro_torch.models import params as pmod
-    from repro_torch.models.model import model_spec
     from repro_torch.optim import adamw, compress
+    from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import steps as steps_mod
 
-    dev = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, device=args.device)
+    dev = mesh_device(mesh) if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     shape = lmdata.ShapeSpec("train", args.seq, args.batch, "train")
     opt = adamw.OptConfig(total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
                           accum_steps=args.accum, state_dtype=args.opt_dtype)
-    step_fn = steps_mod.make_train_step(cfg, opt, grad_compress=args.grad_compress)
+    batch0 = lmdata.input_specs(cfg, shape)
+    step_fn, ctx, spec = steps_mod.jit_train_step(cfg, opt, mesh, batch0,
+                                                  grad_compress=args.grad_compress)
+    p_shard = shd.tree_shardings(spec, ctx)
     params = pmod.initialize(torch.Generator(device=dev).manual_seed(args.seed),
-                             model_spec(cfg), getattr(torch, cfg.dtype), dev)
+                             spec, getattr(torch, cfg.dtype), dev)
+    if mesh is not None:
+        params = pmod.tree_map(shd.place, params, p_shard)
     opt_state = adamw.init_state(params, opt, device=dev)
     residual = compress.init_residual(params) if args.grad_compress else None
 
     start_step = 0
     ckptr = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckptr and args.fresh:
-        for s in ckpt.list_steps(args.ckpt_dir):
-            shutil.rmtree(os.path.join(args.ckpt_dir, f"step_{s:08d}"))
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            for s in ckpt.list_steps(args.ckpt_dir):
+                shutil.rmtree(os.path.join(args.ckpt_dir, f"step_{s:08d}"))
+        if dist.is_initialized():
+            dist.all_reduce(torch.zeros(1))   # every rank past the deletion
     elif ckptr:
         latest = ckpt.latest_step(args.ckpt_dir)
         if latest is not None:
-            restored = ckpt.restore(args.ckpt_dir, latest, {
-                "params": params, "m": opt_state["m"], "v": opt_state["v"],
-                "step": opt_state["step"]})
+            like = {"params": params, "m": opt_state["m"], "v": opt_state["v"],
+                    "step": opt_state["step"]}
+            where = None
+            if mesh is not None:    # onto this run's mesh, whatever saved it
+                where = {"params": p_shard, "m": p_shard, "v": p_shard,
+                         "step": shd.sharding_for((), ctx, ())}
+            restored = ckpt.restore(args.ckpt_dir, latest, like, shardings=where)
             params = restored["params"]
             opt_state = {"m": restored["m"], "v": restored["v"], "step": restored["step"]}
             start_step = latest
-            print(f"[resume] restored step {latest} from {args.ckpt_dir}")
+            say(f"[resume] restored step {latest} from {args.ckpt_dir}")
 
     losses = []
     t_start = time.time()
@@ -115,8 +146,8 @@ def train_loop(args) -> dict:
                                    "(straggler watchdog)")
             losses.append(loss)
             if step % args.log_every == 0:
-                print(f"step {step:5d} loss {loss:.4f} gnorm "
-                      f"{float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
+                say(f"step {step:5d} loss {loss:.4f} gnorm "
+                    f"{float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
             if ckptr and (step + 1) % args.ckpt_every == 0:
                 ckptr.save_async(step + 1, {"params": params, "m": opt_state["m"],
                                             "v": opt_state["v"], "step": opt_state["step"]})
@@ -140,7 +171,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--mesh", default=None,
-                    help="refused until the LM-on-a-mesh slice of the port")
+                    help="train over a mesh of the torch.distributed.run ranks: "
+                         "'2', '1x2' or '2x16x16' (axes data, data/model, "
+                         "pod/data/model)")
     ap.add_argument("--device", default=None,
                     help="torch device of the run (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
@@ -161,27 +194,28 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    if args.mesh and args.mesh != "none":
-        ap.error("--mesh trains over several cards, which comes with the next "
-                 "slice of the port (the LM on a mesh)")
 
     from repro_torch.device import resolve_device
 
     resolve_device(args.device)   # without a card, raise before any attempt
-    # supervisor: restart from the latest checkpoint on failure
-    for attempt in range(args.max_restarts + 1):
-        try:
-            out = train_loop(args)
-            print(f"done: final_loss={out['final_loss']:.4f} "
-                  f"wall={out['wall_s']:.1f}s")
-            return
-        except (RuntimeError, TimeoutError) as e:
-            print(f"[watchdog] attempt {attempt} failed: {e}")
-            if attempt == args.max_restarts or not args.ckpt_dir:
-                raise
-            args.fail_at = None   # injected failures fire once
-            args.fresh = False    # a restart resumes from this run's checkpoints
-            print("[watchdog] restarting from latest checkpoint...")
+    try:
+        # supervisor: restart from the latest checkpoint on failure
+        for attempt in range(args.max_restarts + 1):
+            try:
+                out = train_loop(args)
+                say(f"done: final_loss={out['final_loss']:.4f} "
+                    f"wall={out['wall_s']:.1f}s")
+                return
+            except (RuntimeError, TimeoutError) as e:
+                say(f"[watchdog] attempt {attempt} failed: {e}")
+                if attempt == args.max_restarts or not args.ckpt_dir:
+                    raise
+                args.fail_at = None   # injected failures fire once
+                args.fresh = False    # a restart resumes from this run's checkpoints
+                say("[watchdog] restarting from latest checkpoint...")
+    finally:
+        if dist.is_initialized():   # a --mesh run's group
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

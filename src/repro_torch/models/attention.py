@@ -14,16 +14,30 @@ The entry points of the reference's ``models/attention.py``:
 
 Query heads are grouped as (KV, G) and contracted against the raw KV
 tensors: K/V are never expanded to H heads.
+
+On a mesh (``ctx``, ``runtime/sharding.py``) the reference's seven
+``constrain`` sites place q/k/v on ("batch", None, "tp", None), the
+prefill K/V and the decode caches on ("batch", "kv_seq", None, "kv_tp").
+The chunked online softmax runs on each rank's (batch, heads) block
+(``shd.local``): no collective.  A decode step writes the new row on the
+rank that holds ``pos`` (under ``seq_sharded_kv`` the cache's sequence is
+sharded over the data axes) and combines the per-shard (max, sum of
+exponentials, weighted V) with all-reduces: the log-sum-exp combine the
+reference's partitioner derives.  The (B, KV, G, S) scores are never
+gathered.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import constrain
 
 DEFAULT_Q_BLOCK = 4096
 
@@ -59,9 +73,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _out(x: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, hd) x (H, hd, d) -> (B, L, d)."""
+    """(B, L, H, hd) x (H, hd, d) -> (B, L, d), as one 2-D product (what
+    ``matmul`` folds a contiguous operand into; a DTensor's fold follows
+    its local layout, which a redistribution may leave strided)."""
     h, hd, d = wo.shape
-    return x.flatten(-2) @ wo.reshape(h * hd, d)
+    b, l = x.shape[:2]
+    return (x.reshape(b * l, h * hd) @ wo.reshape(h * hd, d)).reshape(b, l, d)
 
 
 def _scale(hd: int) -> float:
@@ -69,7 +86,7 @@ def _scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def _project_qkv(params, x, kv_x, cfg: ArchConfig, positions, kv_positions,
+def _project_qkv(params, x, kv_x, cfg: ArchConfig, ctx, positions, kv_positions,
                  rope: bool):
     q = _proj(x, params["wq"])
     k = _proj(kv_x, params["wk"])
@@ -80,6 +97,9 @@ def _project_qkv(params, x, kv_x, cfg: ArchConfig, positions, kv_positions,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "tp", None), ctx)
+    k = constrain(k, ("batch", None, "tp", None), ctx)
+    v = constrain(v, ("batch", None, "tp", None), ctx)
     return q, k, v
 
 
@@ -161,24 +181,41 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int,
     return out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, hd).to(q.dtype)
 
 
-def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def _attend_chunks(q, k, v, cfg: ArchConfig, ctx, *, causal: bool,
+                   kv_chunk: int | None) -> torch.Tensor:
+    """``_chunked_attention`` (from position 0) of q (B, Lq, H, hd) over
+    k/v (B, Lk, KV, hd); on a mesh on each rank's (batch, heads) block,
+    which needs no collective: a block of H/M query heads reads the block
+    of KV/M heads of its group."""
+    kw = dict(causal=causal, q_offset=0, kv_chunk=kv_chunk or cfg.attn_kv_chunk,
+              bf16_intermediates=cfg.attn_bf16_intermediates)
+    if not shd.on_mesh(ctx):
+        return _chunked_attention(q, k, v, **kw)
+    if ([p == Shard(2) for p in q.placements] != [p == Shard(2) for p in k.placements]
+            or tuple(k.placements) != tuple(v.placements)):
+        why = "the KV heads do not shard as the query heads (KV % tp): both replicate"
+        q = shd.reshard(q, ("batch", None, None, None), ctx, why)
+        k = shd.reshard(k, ("batch", None, None, None), ctx, why)
+        v = shd.reshard(v, ("batch", None, None, None), ctx, why)
+    return shd.local(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, **kw), ctx,
+                     (q.placements, k.placements, v.placements), (q.placements,))(q, k, v)
+
+
+def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None, *,
                     causal: bool = True, kv_chunk: int | None = None) -> torch.Tensor:
     positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
-    out = _chunked_attention(q, k, v, causal=causal, q_offset=0,
-                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
-                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    q, k, v = _project_qkv(params, x, x, cfg, ctx, positions, positions, True)
+    out = _attend_chunks(q, k, v, cfg, ctx, causal=causal, kv_chunk=kv_chunk)
     return _out(out, params["wo"])
 
 
 def attention_cross(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
-                    cfg: ArchConfig, *, kv_chunk: int | None = None) -> torch.Tensor:
+                    cfg: ArchConfig, ctx=None, *, kv_chunk: int | None = None
+                    ) -> torch.Tensor:
     """Queries from x (B, Lq, d) over keys and values of ``enc_out``
     (B, Lk, d): no RoPE, no mask."""
-    q, k, v = _project_qkv(params, x, enc_out, cfg, None, None, False)
-    out = _chunked_attention(q, k, v, causal=False, q_offset=0,
-                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
-                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    q, k, v = _project_qkv(params, x, enc_out, cfg, ctx, None, None, False)
+    out = _attend_chunks(q, k, v, cfg, ctx, causal=False, kv_chunk=kv_chunk)
     return _out(out, params["wo"])
 
 
@@ -186,25 +223,27 @@ def attention_cross(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
 # prefill (returns the KV cache) and single-token decode
 # ---------------------------------------------------------------------------
 
-def attention_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def attention_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None, *,
                       kv_chunk: int | None = None):
     """Causal attention that also returns the (B, L, KV, hd) cache."""
     positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
-    out = _chunked_attention(q, k, v, causal=True, q_offset=0,
-                             kv_chunk=kv_chunk or cfg.attn_kv_chunk,
-                             bf16_intermediates=cfg.attn_bf16_intermediates)
+    q, k, v = _project_qkv(params, x, x, cfg, ctx, positions, positions, True)
+    out = _attend_chunks(q, k, v, cfg, ctx, causal=True, kv_chunk=kv_chunk)
+    k = constrain(k, ("batch", "kv_seq", None, "kv_tp"), ctx)
+    v = constrain(v, ("batch", "kv_seq", None, "kv_tp"), ctx)
     return _out(out, params["wo"]), (k, v)
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
-                     cfg: ArchConfig) -> tuple[torch.Tensor, tuple]:
+                     cfg: ArchConfig, ctx=None) -> tuple[torch.Tensor, tuple]:
     """x: (B, 1, d); cache: (k, v) each (B, S, KV, hd); pos: the position
     of the token (a Python int).
 
     Writes the token's K/V into the cache at ``pos`` in place and returns
     the caches with the output; scores the whole cache length S in float32
-    under the mask ``arange(S) <= pos``.
+    under the mask ``arange(S) <= pos``.  A cache whose S is sharded (the
+    ``seq_sharded_kv`` rules) is written on the rank that holds ``pos``
+    and attended by the log-sum-exp combine (``_attend_sharded``).
     """
     b = x.shape[0]
     k_cache, v_cache = cache
@@ -220,14 +259,91 @@ def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
     positions = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    _write_row(k_cache, pos, k_new, ctx)
+    _write_row(v_cache, pos, v_new, ctx)
+    k_cache = constrain(k_cache, ("batch", "kv_seq", None, "kv_tp"), ctx)
+    v_cache = constrain(v_cache, ("batch", "kv_seq", None, "kv_tp"), ctx)
 
-    scores = _grouped_scores(q, k_cache, cfg)
-    mask = torch.arange(s, device=x.device) <= pos       # scores: (B, KV, G, S)
-    out = _attend_cache(torch.where(mask, scores, float("-inf")), v_cache)
-    return _out(out.reshape(b, 1, cfg.n_heads, -1).to(x.dtype), params["wo"]), \
-        (k_cache, v_cache)
+    if shd.on_mesh(ctx):
+        out = _attend_sharded(q, k_cache, v_cache, pos, cfg, ctx)
+    else:
+        scores = _grouped_scores(q, k_cache, cfg)
+        mask = torch.arange(s, device=x.device) <= pos   # scores: (B, KV, G, S)
+        out = _attend_cache(torch.where(mask, scores, float("-inf")), v_cache)
+        out = out.reshape(b, 1, cfg.n_heads, -1)
+    return _out(out.to(x.dtype), params["wo"]), (k_cache, v_cache)
+
+
+def _write_row(cache: torch.Tensor, pos: int, new: torch.Tensor, ctx) -> None:
+    """``cache[:, pos] = new`` in place.  On a mesh the row takes the
+    cache's placements (its sequence dim, of length 1, replicated) and the
+    rank whose block of S holds ``pos`` writes it into its local part: no
+    rank gathers the cache."""
+    new = new.to(cache.dtype)
+    if not shd.on_mesh(ctx):
+        cache[:, pos:pos + 1] = new
+        return
+    new = shd.reshard(new, ("batch", None, None, "kv_tp"), ctx,
+                      "the new row takes the cache's batch and hd shards")
+    row = tuple(new.placements)
+    block, _ = shd.shard_block(tuple(cache.placements), 1, ctx)
+
+    def write(c, n):
+        start = block * c.shape[1]
+        if start <= pos < start + c.shape[1]:
+            c[:, pos - start:pos - start + 1] = n
+        return c
+
+    shd.local(write, ctx, (cache.placements, row), (cache.placements,))(cache, new)
+
+
+def _attend_sharded(q, k_cache, v_cache, pos: int, cfg: ArchConfig, ctx):
+    """One query against a placed cache, positions past ``pos`` masked:
+    each rank scores its block of S (all of S unless ``kv_seq`` shards it)
+    with the partial dot products over its hd slice (``kv_tp``) summed
+    over the hd ranks, and the blocks' (max, sum of exp, weighted V)
+    combine by all-reduces over the S ranks: the softmax of the whole row,
+    never gathered.  -> (B, 1, H, hd) float32 on head shards, for ``wo``."""
+    b = q.shape[0]
+    hd, n_kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // n_kv
+    kp = tuple(k_cache.placements)
+    # q grouped (B, KV, G, hd), its hd placed as the cache's hd (kv_tp)
+    qg = q.reshape(b, n_kv, g, hd)
+    qg = shd.reshard(qg, ("batch", None, None, "kv_tp"), ctx,
+                     "the grouped query meets the cache's hd shards (kv_tp)")
+    block, s_axes = shd.shard_block(kp, 1, ctx)
+    tp_axes = shd.shard_block(kp, 3, ctx)[1]
+    s_groups = [ctx.mesh.get_group(a) for a in s_axes]
+    tp_groups = [ctx.mesh.get_group(a) for a in tp_axes]
+    scale = _scale(hd)
+
+    def attend(qg, kc, vc):
+        s_loc = kc.shape[1]
+        scores = (qg.float() * scale) @ kc.float().permute(0, 2, 3, 1)   # (B,KV,G,S_loc)
+        for grp in tp_groups:
+            scores = shd.sum_over(scores, grp)
+        kv_pos = block * s_loc + torch.arange(s_loc, device=kc.device)
+        scores = torch.where(kv_pos <= pos, scores, float("-inf"))
+        m = scores.amax(dim=-1, keepdim=True)
+        for grp in s_groups:
+            m = shd.max_over(m, grp)
+        p = torch.exp(scores - m)              # a block past pos: all zeros
+        tot = p.sum(dim=-1, keepdim=True)
+        out = p @ vc.float().permute(0, 2, 1, 3)                          # (B,KV,G,hd_loc)
+        for grp in s_groups:
+            tot = shd.sum_over(tot, grp)
+            out = shd.sum_over(out, grp)
+        out = out / tot                                    # (B_loc, KV, G, hd_loc)
+        return out.reshape(out.shape[0], 1, n_kv * g, -1)
+
+    out_pl = [Shard(3) if p == Shard(3) else (p if p == Shard(0) else Replicate())
+              for p in kp]
+    out = shd.local(attend, ctx, (tuple(qg.placements), kp, tuple(v_cache.placements)),
+                    (out_pl,))(qg, k_cache, v_cache)
+    return shd.reshard(out, ("batch", None, "tp", None), ctx,
+                       "the decode output goes from the cache's hd shards to head shards "
+                       "for wo")
 
 
 def _grouped_scores(q: torch.Tensor, k_cache: torch.Tensor, cfg: ArchConfig):
@@ -246,14 +362,18 @@ def _attend_cache(scores: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
 
 
 def attention_cross_decode(params: dict, x: torch.Tensor, cross_cache: tuple,
-                           cfg: ArchConfig) -> torch.Tensor:
+                           cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """Decode-time cross attention: the query of x (B, 1, d) over the static
     (k, v) cache made from the encoder output at prefill, scored in float32
     over every encoder position."""
     k_cache, v_cache = cross_cache
-    scores = _grouped_scores(_proj(x, params["wq"]), k_cache, cfg)
-    out = _attend_cache(scores, v_cache)
-    return _out(out.reshape(x.shape[0], 1, cfg.n_heads, -1).to(x.dtype), params["wo"])
+    q = _proj(x, params["wq"])
+    if shd.on_mesh(ctx):
+        out = _attend_sharded(q, k_cache, v_cache, k_cache.shape[1] - 1, cfg, ctx)
+    else:
+        out = _attend_cache(_grouped_scores(q, k_cache, cfg), v_cache)
+        out = out.reshape(x.shape[0], 1, cfg.n_heads, -1)
+    return _out(out.to(x.dtype), params["wo"])
 
 
 def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor) -> tuple:

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import sharding as shd
 
 # ---------------------------------------------------------------------------
 # specs
@@ -72,8 +73,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh (``ctx``) the lookup runs on each
+    rank's vocabulary block of the table (its d_model shards gathered
+    first): a token outside the block reads zeros, and the blocks' rows are
+    summed over the vocabulary's ``tp`` ranks, as a vocabulary-parallel
+    embedding does."""
+    if not shd.on_mesh(ctx):
+        return table[tokens]
+    table = shd.reshard(table, ("tp", None), ctx,
+                        "the embedding gathers its d_model (fsdp) shards for the lookup")
+    tokens = shd.reshard(tokens, ("batch", None), ctx,
+                         "the tokens on the batch's shards (a no-op for placed inputs)")
+    block, v_axes = shd.shard_block(tuple(table.placements), 0, ctx)
+    groups = [ctx.mesh.get_group(a) for a in v_axes]
+
+    def look(t, tok):
+        local = tok.long() - block * t.shape[0]
+        inside = (local >= 0) & (local < t.shape[0])
+        out = torch.where(inside[..., None], t[local.clamp(0, t.shape[0] - 1)], 0)
+        for grp in groups:
+            out = shd.sum_over(out, grp)
+        return out
+
+    rows = shd.placements(("batch", None, None), ctx, (*tokens.shape, table.shape[1]))
+    tp, kp = tuple(table.placements), tuple(tokens.placements)
+    # each batch shard adds its rows' gradients to the (replicated) table
+    return shd.local(look, ctx, (tp, kp), (rows,),
+                     (shd.partial_where(tp, kp, 0), kp))(table, tokens)
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *, tied: bool) -> torch.Tensor:

@@ -24,6 +24,14 @@ arithmetic is prefill's, step for step.
 
 Decode keeps the (B, di, st) float32 state and the last k-1 pre-conv
 activations, and advances one token a call.
+
+On a mesh (``ctx``) the reference's two ``constrain`` sites put ``xr`` on
+("batch", None, "tp"); the zero state is made placed as the decode cache's
+("batch", "tp", None).  The doubling scan touches one (d_inner, state)
+channel at a time, so it runs on each rank's shards (``shd.local``) with
+no collective.  Splitting ``in_proj``'s tp-sharded 2 * d_inner output
+into x and z moves columns between ranks (rank r's block holds x or z,
+not both), a redistribution the reference's partitioner makes implicitly.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import constrain
 
 SSM_CHUNK = 256  # time chunk: bounds the live (B, Q, di, st) state expansion
 
@@ -113,6 +123,51 @@ def _scan_train(da: torch.Tensor, dbx: torch.Tensor):
     return a, b
 
 
+def _in_proj(params, x: torch.Tensor, ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """in_proj, split into (xr, z), each (B, L, di)."""
+    xi = x @ params["in_proj"]
+    xi = shd.reshard(xi, ("batch", None, None), ctx,
+                     "splitting in_proj's tp-sharded 2 * d_inner into x and z")
+    return xi.chunk(2, dim=-1)
+
+
+def _on_shards(core, ctx, da, dbx, c, h0):
+    """``core(da, dbx, c, h0)`` on each rank's shards, the outputs (the
+    carried state (B, di, st), y (B, Q, di)) placed by ("batch", "tp",
+    None) and ("batch", None, "tp"); ``core`` itself without a mesh.  A
+    selective scan touches one (d_inner, state) channel at a time, so it
+    needs no collective."""
+    if not shd.on_mesh(ctx):
+        return core(da, dbx, c, h0)
+    why = "the scan's operands on their batch and d_inner shards (a no-op on every path)"
+    expand, rows, state = ("batch", None, "tp", None), ("batch", None, None), ("batch", "tp", None)
+    da, dbx = shd.reshard(da, expand, ctx, why), shd.reshard(dbx, expand, ctx, why)
+    c, h0 = shd.reshard(c, rows, ctx, why), shd.reshard(h0, state, ctx, why)
+    y_pl = shd.placements(("batch", None, "tp"), ctx, tuple(da.shape[:3]))
+    ins = (tuple(da.placements), tuple(dbx.placements), tuple(c.placements),
+           tuple(h0.placements))
+    # c is read by every d_inner shard: its gradient sums over them
+    grads = ins[:2] + (shd.partial_where(ins[2], ins[0], 2),) + ins[3:]
+    return shd.local(core, ctx, ins, (h0.placements, y_pl), grads)(da, dbx, c, h0)
+
+
+def _chunk_train(da, dbx, c, h0):
+    """One training chunk: the out-of-place scan seeded with the carried
+    state -> (the state at the chunk's end, y (B, Q, di))."""
+    cum_a, hs = _scan_train(da, dbx)
+    hs = cum_a * h0[:, None] + hs                                     # seed carry
+    return hs[:, -1], (hs @ c[..., None])[..., 0]
+
+
+def _chunk_prefill(da, dbx, c, h0):
+    """One prefill chunk: ``_chunk_train``'s arithmetic in place (``da``
+    and ``dbx`` are overwritten)."""
+    cum_a, hs = _chunk_scan(da, dbx)
+    del da, dbx                                  # frees the scan's spare buffers
+    hs = cum_a.mul_(h0[:, None]).add_(hs)                             # seed carry
+    return hs[:, -1].clone(), (hs @ c[..., None])[..., 0]
+
+
 def _gate_out(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """The skip term in float32, the SiLU(z) gate in ``dtype``, out_proj."""
@@ -120,7 +175,7 @@ def _gate_out(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
     return (y.to(dtype) * F.silu(z)) @ params["out_proj"]
 
 
-def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """Full-sequence selective scan for training, x (B, L, d) -> (B, L, d).
 
     Time is split into chunks of ``min(cfg.ssm_chunk or SSM_CHUNK, L)``, the
@@ -131,18 +186,17 @@ def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     with ``cfg.ssm_checkpoint_chunks`` a chunk keeps only its inputs for the
     backward and recomputes the expansion there."""
     bsz, l, _ = x.shape
-    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,L,di)
+    xr, z = _in_proj(params, x, ctx)                                  # (B,L,di)
+    xr = constrain(xr, ("batch", None, "tp"), ctx)
     xc = F.silu(_conv_train(params, xr, cfg.ssm_conv))
 
     def chunk_step(xc_chunk, h0):
         da, dbx, c = _ssm_inputs(params, xc_chunk, cfg)
-        cum_a, hs = _scan_train(da, dbx)
-        hs = cum_a * h0[:, None] + hs                                 # seed carry
-        return hs[:, -1], (hs @ c[..., None])[..., 0]                 # (B,di,st), (B,Q,di)
+        return _on_shards(_chunk_train, ctx, da, dbx, c, h0)          # (B,di,st), (B,Q,di)
 
     q = min(cfg.ssm_chunk or SSM_CHUNK, l)
-    h = torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                    device=x.device)
+    h = shd.zeros((bsz, cfg.d_inner, cfg.ssm_state), ("batch", "tp", None), ctx,
+                  dtype=torch.float32, device=x.device)
     ys = []
     for start in range(0, l, q):
         xc_chunk = xc[:, start:start + q]
@@ -155,7 +209,7 @@ def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return _gate_out(params, torch.cat(ys, dim=1), xc, z, x.dtype)
 
 
-def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig
+def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
                   ) -> tuple[torch.Tensor, dict]:
     """Full-sequence scan, x (B, L, d) -> (out (B, L, d), decode state:
     the (B, di, st) SSM state at t = L - 1 and the last k - 1 pre-conv
@@ -168,7 +222,8 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig
     if l < k - 1:
         raise ValueError(f"a mamba prefill needs at least ssm_conv - 1 = {k - 1} "
                          f"positions for its conv tail, got {l}")
-    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,L,di)
+    xr, z = _in_proj(params, x, ctx)                                  # (B,L,di)
+    xr = constrain(xr, ("batch", None, "tp"), ctx)
     xc = F.silu(_conv_train(params, xr, k))
 
     q = min(SSM_CHUNK, l)
@@ -177,18 +232,15 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig
     xcp = F.pad(xc, (0, 0, 0, pad)) if pad else xc
     # padded steps get dt = 0 (state pass-through), so h_last is h at t = l - 1
     valid = (torch.arange(n_chunks * q, device=x.device) < l).float()
-    h = torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                    device=x.device)
+    h = shd.zeros((bsz, cfg.d_inner, cfg.ssm_state), ("batch", "tp", None), ctx,
+                  dtype=torch.float32, device=x.device)
     ys = []
     for i in range(n_chunks):
-        da, dbx, c = _ssm_inputs(params, xcp[:, i * q:(i + 1) * q], cfg,
-                                 mask=valid[i * q:(i + 1) * q])
-        cum_a, hs = _chunk_scan(da, dbx)
-        del da, dbx                                  # frees the scan's spare buffers
-        hs = cum_a.mul_(h[:, None]).add_(hs)                          # seed carry
-        ys.append((hs @ c[..., None])[..., 0])                        # (B,Q,di)
-        h = hs[:, -1].clone()
-        del cum_a, hs
+        # no name holds da and dbx: the chunk frees them as it goes
+        h, y = _on_shards(_chunk_prefill, ctx,
+                          *_ssm_inputs(params, xcp[:, i * q:(i + 1) * q], cfg,
+                                       mask=valid[i * q:(i + 1) * q]), h)
+        ys.append(y)                                                  # (B,Q,di)
     y = torch.cat(ys, dim=1)[:, :l]
     out = _gate_out(params, y, xc, z, x.dtype)
     return out, {"ssm": h, "conv": xr[:, l - (k - 1):].clone()}
@@ -208,11 +260,11 @@ def mamba_init_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
     }
 
 
-def mamba_decode(params: dict, x: torch.Tensor, state: dict, cfg: ArchConfig
+def mamba_decode(params: dict, x: torch.Tensor, state: dict, cfg: ArchConfig, ctx=None
                  ) -> tuple[torch.Tensor, dict]:
     """One token step. x: (B, 1, d); state: {"ssm", "conv"} -> (out, the
     new state; the tensors of ``state`` are not written)."""
-    xr, z = (x @ params["in_proj"]).chunk(2, dim=-1)                 # (B,1,di)
+    xr, z = _in_proj(params, x, ctx)                                  # (B,1,di)
     window = torch.cat([state["conv"], xr], dim=1)                    # (B,k,di)
     xc = torch.einsum("bkd,kd->bd", window, params["conv_w"]) + params["conv_b"]
     xc = F.silu(xc)[:, None]                                          # (B,1,di)

@@ -14,9 +14,18 @@ Three dispatch implementations, as in the reference's ``models/moe.py``:
   local capacity: tokens reshaped to (n_dp, T_loc, d), each shard sorted,
   capacity-sliced and scattered back on its own (``_local_build``,
   ``_local_gather_back``, functions over the leading n_dp axis).  Without a
-  mesh n_dp = 1, as in the reference; over a mesh the leading axis is the
-  one to shard, which the LM-on-a-mesh slice of the port does (until then a
-  mesh raises).
+  mesh n_dp = 1, as in the reference; over a mesh n_dp is the product of
+  the batch axes' sizes, the leading axis is sharded over them, and the
+  sort, the queue positions and the scatters run on each rank's own shard
+  (``shd.local``).  The dispatch block then moves from ("batch", None,
+  None, None) to ("batch", "tp", None, None): the all-to-all expert
+  parallelism needs, and the one the reference names; the expert
+  outputs come back by the reverse all-to-all.
+
+On a mesh the ``index`` dispatch sorts all tokens of the batch jointly, as
+the reference's does: its tokens, weights and ids are replicated first
+(the reference's partitioner gathers them for its global sort), and its
+expert outputs are gathered for the scatter-back.
 
 Router: softmax over experts, top-k (ties to the lower expert id, as
 ``jax.lax.top_k``), weights renormalised over the selected experts, and a
@@ -25,12 +34,17 @@ Switch-style load-balance loss returned to the caller.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import mlp, mlp_spec
 from repro_torch.models.params import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import constrain
 
 
 def moe_spec(cfg: ArchConfig) -> dict:
@@ -73,49 +87,71 @@ def _experts_dense(params, x_flat: torch.Tensor, weights, ids,
                    cfg: ArchConfig) -> torch.Tensor:
     """Naive: all experts on all tokens, weighted combine."""
     combine = torch.zeros((x_flat.shape[0], cfg.n_experts), dtype=x_flat.dtype,
-                          device=x_flat.device)
-    combine.scatter_add_(1, ids, weights)
+                          device=x_flat.device).scatter_add(1, ids, weights)
     h = F.silu(x_flat @ params["w_gate"]) * (x_flat @ params["w_up"])   # (E, T, f)
     outs = h @ params["w_down"]                                          # (E, T, d)
     return torch.einsum("etd,te->td", outs, combine)
 
 
-def _experts_index(params, x_flat: torch.Tensor, weights, ids,
-                   cfg: ArchConfig) -> torch.Tensor:
-    """Index dispatch: sort routed token indices by expert (stable),
-    capacity-slice, one batched product per expert weight, weighted
-    scatter-back."""
+def _index_build(x_flat: torch.Tensor, weights, ids, e: int, cap: int) -> tuple:
+    """The index dispatch block: routed token indices sorted by expert
+    (stable), each one's place in its expert's queue (its index in the
+    sorted list less its expert's first index: no host sync), drops past
+    ``cap`` to an overflow row -> (disp (E, cap, d), slot, contribution
+    weight, sorted_tok, (T*k,) each)."""
     t, d = x_flat.shape
-    k, e = cfg.experts_per_token, cfg.n_experts
-    cap = int(t * k / e * cfg.capacity_factor) + 1
-
+    k = ids.shape[-1]
     flat_ids = ids.reshape(-1)                             # (T*k,)
-    flat_w = weights.reshape(-1)
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
     sorted_tok = order // k
-
-    # position of each routed token within its expert's queue: its index
-    # in the sorted list less its expert's first index (no host sync)
     experts = torch.arange(e, device=x_flat.device, dtype=sorted_ids.dtype)
     starts = torch.searchsorted(sorted_ids, experts)
     pos = torch.arange(t * k, device=x_flat.device) - starts[sorted_ids]
     keep = pos < cap
     slot = torch.where(keep, sorted_ids * cap + pos, e * cap)   # drop -> overflow row
-
-    xs = x_flat[sorted_tok]                                # (T*k, d) gather
     disp = torch.zeros((e * cap + 1, d), dtype=x_flat.dtype, device=x_flat.device)
-    disp.index_copy_(0, slot, xs)
-    disp = disp[:-1].reshape(e, cap, d)
+    disp.index_copy_(0, slot, x_flat[sorted_tok])
+    wgt = weights.reshape(-1)[order] * keep
+    return disp[:-1].reshape(e, cap, d), slot, wgt, sorted_tok
+
+
+def _index_gather_back(out_e: torch.Tensor, slot, wgt, sorted_tok, t: int) -> torch.Tensor:
+    """The weighted scatter-back of the expert outputs (E, cap, d) -> (T, d)."""
+    e, cap, d = out_e.shape
+    flat_out = torch.cat([out_e.reshape(e * cap, d),
+                          torch.zeros((1, d), dtype=out_e.dtype, device=out_e.device)])
+    out = torch.zeros((t, d), dtype=out_e.dtype, device=out_e.device)
+    return out.index_add_(0, sorted_tok, flat_out[slot] * wgt[:, None])
+
+
+def _experts_index(params, x_flat: torch.Tensor, weights, ids,
+                   cfg: ArchConfig, ctx=None) -> torch.Tensor:
+    """Index dispatch: sort routed token indices by expert (stable),
+    capacity-slice, one batched product per expert weight, weighted
+    scatter-back.  The sort is global: on a mesh every rank builds the
+    whole block from replicated tokens."""
+    t, d = x_flat.shape
+    k, e = cfg.experts_per_token, cfg.n_experts
+    cap = int(t * k / e * cfg.capacity_factor) + 1
+    why = "the index dispatch sorts every token of the batch jointly"
+    x_flat = shd.reshard(x_flat, (None, None), ctx, why)
+    weights = shd.reshard(weights, (None, None), ctx, why)
+    ids = shd.reshard(ids, (None, None), ctx, why)
+    rep2, rep1 = shd.placements((None, None), ctx), shd.placements((None,), ctx)
+    rep3 = shd.placements((None, None, None), ctx)
+    disp, slot, wgt, sorted_tok = shd.local(
+        lambda xf, w, i: _index_build(xf, w, i, e, cap), ctx, (rep2, rep2, rep2),
+        (rep3, rep1, rep1, rep1))(x_flat, weights, ids)
+    disp = constrain(disp, ("tp", None, None), ctx)
 
     h = F.silu(torch.bmm(disp, params["w_gate"])) * torch.bmm(disp, params["w_up"])
     out_e = torch.bmm(h, params["w_down"])                 # (E, cap, d)
-
-    flat_out = torch.cat([out_e.reshape(e * cap, d),
-                          torch.zeros((1, d), dtype=out_e.dtype, device=out_e.device)])
-    contrib = flat_out[slot] * (flat_w[order] * keep)[:, None]
-    out = torch.zeros((t, d), dtype=x_flat.dtype, device=x_flat.device)
-    return out.index_add_(0, sorted_tok, contrib)
+    out_e = constrain(out_e, ("tp", None, None), ctx)
+    out_e = shd.reshard(out_e, (None, None, None), ctx,
+                        "the scatter-back reads every expert's rows by slot")
+    return shd.local(lambda oe, sl, wg, st: _index_gather_back(oe, sl, wg, st, t), ctx,
+                     (rep3, rep1, rep1, rep1), (rep2,))(out_e, slot, wgt, sorted_tok)
 
 
 def _local_build(xs: torch.Tensor, ws: torch.Tensor, is_: torch.Tensor,
@@ -157,23 +193,51 @@ def _local_gather_back(out_e: torch.Tensor, slot: torch.Tensor,
     return out.scatter_add_(1, sorted_tok[..., None].expand(-1, -1, d), contrib)
 
 
+def _dp_shards(t: int, ctx) -> int:
+    """n_dp: the product of the batch axes' sizes (1 without a mesh, or
+    where it does not divide the T tokens), as the reference computes it."""
+    n_dp = 1
+    if shd.on_mesh(ctx):
+        sizes = ctx.axis_sizes
+        n_dp = math.prod(sizes[a] for a in ctx.rules.get("batch", ())) or 1
+    return 1 if t % n_dp else n_dp
+
+
 def _experts_local_index(params, x_flat: torch.Tensor, weights, ids,
-                         cfg: ArchConfig, n_dp: int = 1) -> torch.Tensor:
+                         cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """Index dispatch per data-parallel shard, with the shard's capacity
-    (the reference's ``_experts_local_index``; n_dp = 1 without a mesh)."""
+    (the reference's ``_experts_local_index``).  The reference reshapes
+    the tokens to (n_dp, T_loc, d) with the leading axis on "batch"; here
+    the (T, d) tokens on ("batch", None) are the same placement, and each
+    rank's build and scatter-back see its (1, T_loc, d) block."""
     t, d = x_flat.shape
-    if t % n_dp:
-        n_dp = 1
+    n_dp = _dp_shards(t, ctx)
     t_loc = t // n_dp
     k, e = cfg.experts_per_token, cfg.n_experts
     cap = int(t_loc * k / e * cfg.capacity_factor) + 1
-    disp, slot, wgt, sorted_tok = _local_build(
-        x_flat.reshape(n_dp, t_loc, d), weights.reshape(n_dp, t_loc, k),
-        ids.reshape(n_dp, t_loc, k), e, cap)
+    lead = "batch" if n_dp > 1 else None          # one shard: every rank builds it
+    xs = constrain(x_flat, (lead, None), ctx)
+    why = "the routed weights and ids follow their tokens' shard"
+    ws = shd.reshard(weights, (lead, None), ctx, why)
+    is_ = shd.reshard(ids, (lead, None), ctx, why)
+    rows2, rows1 = shd.placements((lead, None), ctx), shd.placements((lead, None), ctx)
+    block = shd.placements((lead, None, None, None), ctx)
+    disp, slot, wgt, sorted_tok = shd.local(
+        lambda x_, w_, i_: _local_build(x_.reshape(-1, t_loc, d), w_.reshape(-1, t_loc, k),
+                                        i_.reshape(-1, t_loc, k), e, cap), ctx,
+        (rows2, rows2, rows2), (block, rows1, rows1, rows1))(xs, ws, is_)
+    # the dispatch block's all-to-all: data-parallel shards -> expert shards
+    disp = constrain(disp, (lead, "tp", None, None), ctx)
     h = F.silu(torch.einsum("secd,edf->secf", disp, params["w_gate"]))
     h = h * torch.einsum("secd,edf->secf", disp, params["w_up"])
     out_e = torch.einsum("secf,efd->secd", h, params["w_down"])
-    return _local_gather_back(out_e, slot, wgt, sorted_tok, t_loc).reshape(t, d)
+    out_e = constrain(out_e, (lead, "tp", None, None), ctx)
+    out_e = shd.reshard(out_e, (lead, None, None, None), ctx,
+                        "the reverse all-to-all: each shard's expert outputs come home")
+    out = shd.local(
+        lambda o_, s_, w_, t_: _local_gather_back(o_, s_, w_, t_, t_loc).reshape(-1, d), ctx,
+        (block, rows1, rows1, rows1), (rows2,))(out_e, slot, wgt, sorted_tok)
+    return constrain(out, (lead, None), ctx)
 
 
 def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
@@ -181,21 +245,42 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
     """x: (B, L, d) -> (out, aux_loss).  ``ctx``: a ``runtime/sharding``
     ``ShardCtx`` (None: one card)."""
     b, l, d = x.shape
-    x_flat = x.reshape(b * l, d)
+    x_flat = _tokens(x, ctx)
     weights, ids, aux = _route(params, x_flat, cfg)
     if cfg.moe_dispatch == "dense":
         out = _experts_dense(params, x_flat, weights, ids, cfg)
     elif cfg.moe_dispatch == "index":
-        out = _experts_index(params, x_flat, weights, ids, cfg)
+        out = _experts_index(params, x_flat, weights, ids, cfg, ctx)
     elif cfg.moe_dispatch == "local_index":
-        if ctx is not None and ctx.mesh is not None:
-            raise NotImplementedError(
-                "moe_dispatch='local_index' over a mesh shards the dispatch's "
-                "leading axis; it comes with the next slice of the port, the "
-                "LM on a mesh (ROADMAP queue 1)")
-        out = _experts_local_index(params, x_flat, weights, ids, cfg)
+        out = _experts_local_index(params, x_flat, weights, ids, cfg, ctx)
     else:
         raise ValueError(cfg.moe_dispatch)
     if "shared" in params:
         out = out + mlp(params["shared"], x_flat)
-    return out.reshape(b, l, d), aux
+    return _untokens(out, b, l, ctx), aux
+
+
+def _tokens(x: torch.Tensor, ctx) -> torch.Tensor:
+    """(B, L, d) -> (T, d) rows.  On a mesh each rank flattens its own
+    rows of the batch (its (B_loc, L, d) block is its T_loc rows): a
+    DTensor view would re-derive, in the backward, the placement of a dim
+    that two mesh dims split, and gets it wrong."""
+    b, l, d = x.shape
+    if not shd.on_mesh(ctx):
+        return x.reshape(b * l, d)
+    x = shd.reshard(x, ("batch", None, None), ctx,
+                    "the token rows are the batch's (a no-op on the residual stream)")
+    rows = tuple(x.placements)
+    return shd.local(lambda t: t.reshape(-1, d), ctx, (rows,), (rows,))(x)
+
+
+def _untokens(out: torch.Tensor, b: int, l: int, ctx) -> torch.Tensor:
+    """``_tokens``' inverse: (T, d) rows -> (B, L, d)."""
+    d = out.shape[-1]
+    if not shd.on_mesh(ctx):
+        return out.reshape(b, l, d)
+    rows = shd.placements(("batch", None, None), ctx, (b, l, d))
+    lead = "batch" if Shard(0) in rows else None
+    out = shd.reshard(out, (lead, None), ctx,
+                      "the token rows go back to the batch's (a no-op on every dispatch)")
+    return shd.local(lambda t: t.reshape(-1, l, d), ctx, (rows,), (rows,))(out)

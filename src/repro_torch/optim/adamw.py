@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models.params import flatten, tree_map
@@ -49,9 +50,11 @@ def schedule(opt: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params: Any, opt: OptConfig, device=None) -> dict:
-    """Zero moments of ``opt.state_dtype`` shaped as ``params`` and a zero
-    int32 step, on ``device`` (default: the card; raises without one unless
-    ``device="cpu"``), which must be the parameters' device."""
+    """Zero moments of ``opt.state_dtype`` shaped and placed as ``params``
+    (a parameter's DTensor placement kept: each rank holds its moments'
+    shards) and a zero int32 step (replicated on a mesh), on ``device``
+    (default: the card; raises without one unless ``device="cpu"``), which
+    must be the parameters' device."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:     # "cuda": the current card
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -62,15 +65,21 @@ def init_state(params: Any, opt: OptConfig, device=None) -> dict:
     sdt = getattr(torch, opt.state_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=sdt, device=dev)
+        return torch.zeros_like(p, dtype=sdt, memory_format=torch.contiguous_format)
 
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    some = next(iter(flatten(params).values()), None)
+    if isinstance(some, DTensor):
+        step = distribute_tensor(step, some.device_mesh, [Replicate()] * some.device_mesh.ndim,
+                                 src_data_rank=None)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": step}
 
 
 def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / global norm) in float32 and
-    cast back to its dtype -> (clipped tree, the float32 global norm)."""
+    cast back to its dtype -> (clipped tree, the float32 global norm).  A
+    sharded gradient's sum of squares is reduced over its shards (the
+    norm is a replicated scalar)."""
     sq = sum(torch.sum(torch.square(g.float())) for g in flatten(grads).values())
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)

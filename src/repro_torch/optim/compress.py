@@ -45,6 +45,8 @@ def compress_decompress(grads: Any, residual: Any) -> tuple[Any, Any]:
 
 
 def init_residual(params: Any) -> Any:
-    """A zero bf16 residual shaped as ``params``, on their devices."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device),
+    """A zero bf16 residual shaped and placed as ``params``, on their
+    devices."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.bfloat16,
+                                               memory_format=torch.contiguous_format),
                     params)

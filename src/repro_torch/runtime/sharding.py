@@ -22,21 +22,46 @@ tensor dimension over ``("pod", "data")`` becomes ``Shard(d)`` on both
 mesh dimensions, which DTensor splits in mesh order: pod major, data
 minor, as JAX orders the names of one entry.  A mesh axis that does not
 divide its dimension replicates it (``_sanitize``; e.g. 8 KV heads over a
-16-way ``model`` axis), as in the reference.
+16-way ``model`` axis), as in the reference.  A rule's axis that the mesh
+does not have shards nothing: on a one-axis ``("data",)`` mesh the
+``tp`` dims replicate (the reference's ``_sanitize`` raises a KeyError
+there).
 
 The rule functions need only the axis names and sizes, no process group:
 ``placements_for(axes, rules, shape, axis_names, sizes)``.
+
+Where the model code meets DTensors (the LM on a mesh):
+
+* ``constrain(x, axes, ctx)`` is the reference's ``constrain``: a
+  redistribution to the logical axes' placements, the identity without a
+  mesh (``ctx`` None or mesh-less).
+* ``replicated(ctx)`` scopes the plain helper tensors the model makes
+  (positions, masks, zeros, frequencies): inside it a plain tensor that
+  meets a DTensor is taken as ``Replicate`` on the mesh, as ``jnp``'s
+  constants are replicated under ``jit``.  Every rank makes the same
+  helper, so nothing is moved.
+* ``local(fn, ctx, in_placements, out_placements)`` runs ``fn`` on each
+  rank's shards (``local_map``), for the ops with no DTensor sharding
+  strategy (stable sorts, cumulative sums, scatters, in-place cache
+  writes) and the reductions the reference leaves to its partitioner
+  (the vocabulary log-sum-exp, the sequence-sharded decode softmax).
+  Inputs must already have their placements: ``local`` moves nothing.
+* ``reshard(x, axes, ctx, why)`` is a redistribution the reference does
+  not have; each call names its reason, and ``ROADMAP.md`` lists them.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable, Iterator
 
 import torch
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
+import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import params as pmod
 
@@ -112,7 +137,9 @@ def placements_for(axes: tuple, rules: dict, shape: tuple[int, ...] | None,
     size_of = dict(zip(axis_names, sizes))
     out: list[Placement] = [Replicate()] * len(axis_names)
     for d, ax in enumerate(axes):
-        mesh_axes = _mesh_axes(ax, rules)
+        # a rule's mesh axis this mesh lacks shards nothing (a one-axis
+        # ("data",) mesh has no "model": tp replicates)
+        mesh_axes = tuple(a for a in _mesh_axes(ax, rules) if a in size_of)
         if not mesh_axes:
             continue
         if shape is not None and shape[d] % math.prod(size_of[a] for a in mesh_axes):
@@ -139,27 +166,135 @@ def sharding_for(axes: tuple, ctx: ShardCtx,
 
 
 def place(x: torch.Tensor, where) -> torch.Tensor:
-    """Put a full tensor where ``where`` says: a ``Sharding`` (each rank
-    keeps its part of its own copy of the full tensor: no broadcast), a
-    device, or None (as it is)."""
+    """Put a tensor where ``where`` says: a ``Sharding`` (a full tensor:
+    each rank keeps its part of its own copy, no broadcast; a DTensor:
+    redistributed, or itself where its placements agree), a device, or
+    None (as it is)."""
     if where is None:
         return x
-    x = torch.as_tensor(x)
     if isinstance(where, Sharding):
-        return distribute_tensor(x, where.mesh, list(where.placements),
+        if isinstance(x, DTensor):
+            if tuple(x.placements) == tuple(where.placements):
+                return x
+            return x.redistribute(where.mesh, list(where.placements))
+        return distribute_tensor(torch.as_tensor(x), where.mesh, list(where.placements),
                                  src_data_rank=None)
-    return x.to(where)
+    return torch.as_tensor(x).to(where)
 
 
-def constrain(x: torch.Tensor, axes: tuple, ctx: ShardCtx) -> torch.Tensor:
+def on_mesh(ctx: ShardCtx | None) -> bool:
+    return ctx is not None and ctx.mesh is not None
+
+
+def constrain(x: torch.Tensor, axes: tuple, ctx: ShardCtx | None) -> torch.Tensor:
     """Redistribute ``x`` to its logical axes' placements (the identity
     without a mesh); a plain tensor is taken as the full value."""
-    sh = sharding_for(axes, ctx, tuple(x.shape))
-    if sh is None:
+    if not on_mesh(ctx):
         return x
-    if isinstance(x, DTensor):
-        return x.redistribute(sh.mesh, list(sh.placements))
-    return place(x, sh)
+    return place(x, sharding_for(axes, ctx, tuple(x.shape)))
+
+
+def reshard(x: torch.Tensor, axes: tuple, ctx: ShardCtx | None, why: str) -> torch.Tensor:
+    """``constrain`` at a site the reference does not have: ``why`` says
+    what needs it (``ROADMAP.md`` lists every such site)."""
+    del why
+    return constrain(x, axes, ctx)
+
+
+def zeros(shape: tuple[int, ...], axes: tuple, ctx: ShardCtx | None, **kw) -> torch.Tensor:
+    """``torch.zeros(shape, **kw)`` placed by logical ``axes`` on ``ctx``'s
+    mesh (each rank keeps its part; no collective); plain without one."""
+    return constrain(torch.zeros(shape, **kw), axes, ctx)
+
+
+def placements(axes: tuple, ctx: ShardCtx | None,
+               shape: tuple[int, ...] | None = None) -> tuple | None:
+    """The placements of logical ``axes`` (sanitised by ``shape``), None
+    without a mesh."""
+    sh = sharding_for(axes, ctx, shape) if on_mesh(ctx) else None
+    return None if sh is None else sh.placements
+
+
+@contextmanager
+def replicated(ctx: ShardCtx | None) -> Iterator[None]:
+    """Plain tensors meet DTensors as ``Replicate`` on ``ctx``'s mesh inside
+    (the identity without a mesh).  Unlike ``implicit_replication``, it
+    nests: the state before is restored on exit.  The backward of what ran
+    inside must run inside too (the saved masks are plain)."""
+    if not on_mesh(ctx):
+        yield
+        return
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
+
+
+def local(fn: Callable, ctx: ShardCtx | None, in_placements: tuple,
+          out_placements: tuple, in_grad_placements: tuple | None = None) -> Callable:
+    """``fn`` over each rank's local shards (``local_map``): one entry of
+    ``in_placements`` an argument (None for a non-tensor), one of
+    ``out_placements`` a returned tensor.  An input whose placements
+    differ raises: ``local`` redistributes nothing.  An input replicated
+    over ranks that each use it on other rows gets a partial gradient on
+    each: ``in_grad_placements`` says so (``Partial`` there; default: the
+    input's placements).  ``fn`` itself without a mesh."""
+    if not on_mesh(ctx):
+        return fn
+    ins = tuple(None if p is None else list(p) for p in in_placements)
+    grads = ins if in_grad_placements is None else tuple(
+        None if p is None else list(p) for p in in_grad_placements)
+    return local_map(fn, out_placements=tuple(list(p) for p in out_placements),
+                     in_placements=ins, in_grad_placements=grads,
+                     device_mesh=ctx.mesh, redistribute_inputs=False)
+
+
+def partial_where(placements_: tuple, users: tuple, dim: int) -> tuple:
+    """``placements_`` with ``Partial()`` on each mesh dim where ``users``
+    (another input's placements) shards tensor dim ``dim``: the gradient
+    of an input replicated there is a partial sum on each rank."""
+    return tuple(Partial() if u == Shard(dim) else p for p, u in zip(placements_, users))
+
+
+def shard_block(placements_: tuple, dim: int, ctx: ShardCtx) -> tuple[int, list[str]]:
+    """The mesh axes whose placements shard tensor dim ``dim`` and this
+    rank's block of that dim along them (major to minor, mesh order)."""
+    axes = [n for n, p in zip(ctx.axis_names, placements_) if p == Shard(dim)]
+    block = 0
+    for a in axes:
+        block = block * ctx.axis_sizes[a] + ctx.mesh.get_local_rank(a)
+    return block, axes
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (sum) over a group in the forward, the identity in the
+    backward: the sum is replicated on every rank of the group, so each
+    rank's part gets the replicated gradient as it is (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (differentiable)."""
+    return _SumOverRanks.apply(x, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the ranks of ``group`` (no gradient)."""
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
 
 
 def tree_shardings(spec_tree: Any, ctx: ShardCtx):

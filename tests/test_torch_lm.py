@@ -526,14 +526,43 @@ def test_route_ties_order_by_expert_id():
     np.testing.assert_array_equal(_np(tw.float()), np.asarray(jw.astype(jnp.float32)))
 
 
-def test_local_index_dispatch_raises():
-    """``local_index`` over a mesh waits for the LM-on-a-mesh slice and says
-    so; without one it computes (``test_moe_layer_matches_reference``)."""
-    from repro_torch.runtime.sharding import ShardCtx
+def test_local_index_dispatch_raises(tmp_path):
+    """``local_index`` over a mesh (it raised until the LM-on-a-mesh slice):
+    on 2 gloo ranks (2x1, n_dp = 2) ``moe_layer`` equals the same dispatch
+    computed unsharded with the tokens split into n_dp = 2 shards, each
+    with its own capacity (the reference's ``_experts_local_index`` at
+    n_dp = 2); at capacity 0.25 tokens drop, and the two shards' drops
+    differ from one shard's (n_dp = 1), so the split is what is checked.
+    Tolerance: ``test_moe_layer_matches_reference``'s."""
+    import mesh_worker
 
-    cfg = _tcfg("deepseek-moe-16b", moe_dispatch="local_index")
-    _, tw = _weights(j_moe.moe_spec(_jcfg("deepseek-moe-16b")))
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="next slice of the port, the LM on a mesh"):
-        moe.moe_layer(tw, x, cfg, ShardCtx(mesh=object(), rules={"batch": ("data",)}))
-    assert moe.moe_layer(tw, x, cfg, ShardCtx(None))[0].shape == x.shape
+    over = dict(n_experts=8, experts_per_token=2, moe_dispatch="local_index",
+                capacity_factor=0.25)
+    cfg = _tcfg("deepseek-moe-16b", **over)
+    jw, tw = _weights(j_moe.moe_spec(_jcfg("deepseek-moe-16b", **over)), seed=3)
+    x = np.random.default_rng(4).standard_normal((2, 16, cfg.d_model), np.float32)
+    t, d, k, e = 32, cfg.d_model, cfg.experts_per_token, cfg.n_experts
+    xf = _t(x).reshape(t, d)
+    weights, ids, aux = moe._route(tw, xf, cfg)
+
+    def dispatch(n_dp):
+        cap = int(t // n_dp * k / e * cfg.capacity_factor) + 1
+        disp, slot, wgt, st = moe._local_build(xf.reshape(n_dp, -1, d),
+                                               weights.reshape(n_dp, -1, k),
+                                               ids.reshape(n_dp, -1, k), e, cap)
+        h = torch.nn.functional.silu(torch.einsum("secd,edf->secf", disp, tw["w_gate"]))
+        h = h * torch.einsum("secd,edf->secf", disp, tw["w_up"])
+        out_e = torch.einsum("secf,efd->secd", h, tw["w_down"])
+        out = moe._local_gather_back(out_e, slot, wgt, st, t // n_dp).reshape(t, d)
+        return (out + layers.mlp(tw["shared"], xf)).reshape(2, 16, d)
+
+    want = dispatch(2)
+    assert not torch.allclose(want, dispatch(1), atol=1e-3)
+    np.testing.assert_array_equal(_np(moe.moe_layer(tw, _t(x), cfg)[0]), _np(dispatch(1)))
+    work = tmp_path / "data"
+    work.mkdir()
+    np.savez(work / "moe.npz", x=x, out=_np(want), aux=_np(aux),
+             **{f"w.{k}": v for k, v in params.flatten(jw).items()})
+    mesh_worker.spawn("moe_local_index", {"mesh": [2, 1], "axes": ["data", "model"],
+                                          "overrides": over, "n_dp": 2, "data": str(work)},
+                      str(tmp_path / "group"))

@@ -211,7 +211,7 @@ def test_prefill_decode_consistency(arch):
 
 
 def _cli(module: str, args: list) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", module, *args], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=240)
 
@@ -225,8 +225,10 @@ def test_arch_cli_prints_the_reference_lines(arch):
     """``--arch <arch> --reduced --device cpu`` exits 0 and prints the
     reference's lines (prefill, decode, greedy ids) in its format, with 6
     ids a row; the ids differ, since each package draws its weights from
-    its own generator.  With qwen3, ``--mesh`` and ``--seq-sharded-kv`` are
-    refused with a message."""
+    its own generator.  With qwen3, ``--mesh 2`` and ``--mesh 2
+    --seq-sharded-kv`` (refused until the LM-on-a-mesh slice) run under
+    ``torch.distributed.run --nproc-per-node 2``: rank 0 prints the same
+    lines once, with the unsharded CLI's greedy ids."""
     args = ["--arch", arch, "--reduced", "--prompt-len", "24", "--gen", "6"]
     port = _cli("repro_torch.launch.serve", [*args, "--device", "cpu"])
     ref = _cli("repro.launch.serve", args)
@@ -241,10 +243,13 @@ def test_arch_cli_prints_the_reference_lines(arch):
     assert [len(row.split(",")) for _, row in ids] == [6, 6]
     if arch != "qwen3-0.6b":
         return
-    for flag in (["--mesh", "2x2"], ["--seq-sharded-kv"]):
-        bad = _cli("repro_torch.launch.serve", [*args, "--device", "cpu", *flag])
-        assert bad.returncode == 2
-        assert "several cards" in bad.stderr
+    for flag in (["--mesh", "2"], ["--mesh", "2", "--seq-sharded-kv"]):
+        mesh = _cli("torch.distributed.run", ["--standalone", "--nproc-per-node", "2",
+                                              "-m", "repro_torch.launch.serve", *args,
+                                              "--device", "cpu", *flag])
+        assert mesh.returncode == 0, mesh.stderr[-3000:]
+        assert [_shape(ln) for ln in mesh.stdout.splitlines() if ln.strip()] == got, flag
+        assert re.findall(r"\[(\d)\] \[([\d, ]+)\]", mesh.stdout) == ids, flag
 
 
 def test_serving_functions_match_the_model_methods():

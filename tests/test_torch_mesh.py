@@ -222,8 +222,8 @@ def test_mesh_cli_two_ranks(tmp_path):
     """``python -m torch.distributed.run --nproc-per-node 2 -m
     repro_torch.launch.serve --hdc-fleet --mesh 2 --device cpu`` exits 0,
     prints once (rank 0), makes the unsharded CLI's decisions and writes
-    one checkpoint; ``compile --mesh`` and the LM's ``--mesh`` are
-    refused."""
+    one checkpoint; ``compile --mesh`` is refused (the LM's ``--mesh``,
+    refused until the LM-on-a-mesh slice, runs: tests/test_torch_lm_serve.py)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), OMP_NUM_THREADS="1")
     args = ["--hdc-fleet", "--device", "cpu", "--sessions", "8", "--patients", "2",
@@ -249,8 +249,7 @@ def test_mesh_cli_two_ranks(tmp_path):
     from repro_torch.ckpt import checkpoint as ckpt
 
     assert ckpt.list_steps(str(tmp_path / "ck")) == [0]    # rank 0 wrote it once
-    for bad, msg in ((["compile", "--aot-dir", str(tmp_path / "aot"), "--mesh", "2"], "drop --mesh"),
-                     (["--arch", "qwen3-0.6b", "--mesh", "2"], "LM on a mesh")):
+    for bad, msg in ((["compile", "--aot-dir", str(tmp_path / "aot"), "--mesh", "2"], "drop --mesh"),):
         out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *bad,
                               "--device", "cpu"], env=env, capture_output=True, text=True,
                              timeout=120)

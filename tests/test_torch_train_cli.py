@@ -8,8 +8,9 @@ from the reference's launcher.
   ``tests/test_runtime.py``); every step's printed loss equal.
 * ``--grad-compress`` with ``--opt-dtype bfloat16``: runs, checkpoints the
   bf16 moments as raw 16-bit words and resumes from them.
-* ``--mesh 1x2`` is refused; ``--fresh`` drops the directory's old
-  checkpoints.
+* ``--mesh 1x2`` on 2 ranks, then ``--mesh 2x1`` from its step-4
+  checkpoint, ends at an unsharded run's loss within 1e-5; ``--fresh``
+  drops the directory's old checkpoints.
 * A checkpoint written by the reference's ``launch/train.py`` restores
   into the port (``ckpt.restore``): the same values, and the port's next
   step from the reference's next batch equals the reference's next step
@@ -136,11 +137,34 @@ def test_fresh_discards_old_checkpoints(tmp_path):
     assert out["steps"] == 2 and ckpt.list_steps(d) == [2]
 
 
-def test_mesh_is_refused(capsys):
-    with pytest.raises(SystemExit) as e:
-        train.main(BASE + ["--steps", "1", "--mesh", "1x2"])
-    assert e.value.code == 2
-    assert "several cards" in capsys.readouterr().err
+def test_mesh_is_refused(tmp_path):
+    """``--mesh`` (refused until the LM-on-a-mesh slice) trains elastically:
+    ``--mesh 1x2 --fresh`` for 4 steps on 2 ranks, then ``--mesh 2x1`` to
+    8 steps, restoring the 1x2 run's step-4 checkpoint onto the other mesh
+    (the reference's ``tests/test_runtime.py::test_elastic_reshard_across_meshes``).
+    The final loss equals, within 1e-5, an unsharded run of the same two
+    invocations (4 steps, then resumed to 8: the schedule's ``total_steps``
+    is each invocation's ``--steps``, as the reference's)."""
+    def mesh_run(args: list) -> str:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                            "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *args],
+                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        return r.stdout
+
+    base = BASE + ["--ckpt-every", "2"]
+    sharded, plain = str(tmp_path / "mesh"), str(tmp_path / "plain")
+    first = mesh_run(base + ["--steps", "4", "--fresh", "--mesh", "1x2", "--ckpt-dir", sharded])
+    assert first.count("done: final_loss=") == 1               # rank 0 prints
+    assert ckpt.list_steps(sharded) == [2, 4]
+    second = mesh_run(base + ["--steps", "8", "--mesh", "2x1", "--ckpt-dir", sharded])
+    assert f"[resume] restored step 4 from {sharded}" in second
+    assert [ln.split()[1] for ln in second.splitlines() if ln.startswith("step ")] == \
+        ["4", "5", "6", "7"]
+    _run(base + ["--steps", "4", "--fresh", "--ckpt-dir", plain])
+    straight = _run(base + ["--steps", "8", "--ckpt-dir", plain])
+    assert abs(_final_loss(second) - _final_loss(straight)) < 1e-5
 
 
 def test_reference_checkpoint_restores_into_the_port(tmp_path):
