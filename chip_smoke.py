@@ -167,7 +167,7 @@ Phases (one line each, any failure exits non-zero):
    patched ``[cuda:0, cuda:0]``: fixed fleets eager and warmed, an elastic
    fleet through spills, eviction, compaction, save and
    ``from_checkpoint``, each equal to one device;
-15. the LM on a mesh (run last; no kernel: the LM is plain PyTorch on
+15. the LM on a mesh (run after 13; no kernel: the LM is plain PyTorch on
    ``torch.distributed.tensor``, and the five kernels' launches over the
    phase must be 0): a one-rank NCCL mesh, ``make_mesh((1, 1), ("data",
    "model"))``, against the unsharded port on the same card: (a) float32
@@ -186,7 +186,24 @@ Phases (one line each, any failure exits non-zero):
    ``--mesh 1`` to 8 (restored step 4, the final loss within 1e-5 of the
    same two runs unsharded), and ``launch/serve.py --arch qwen3-0.6b
    --reduced --mesh 1x1 --seq-sharded-kv`` (the unsharded CLI's greedy
-   ids), under ``torch.distributed.run --nproc-per-node 1``.
+   ids), under ``torch.distributed.run --nproc-per-node 1``;
+16. the dry-run (run after 15, in a child process: the ``"fake"`` process
+   group must not meet the NCCL groups): (a) ``launch/dryrun.py``'s cells
+   ``qwen3-0.6b train_4k`` on 256 fake ranks, ``deepseek-moe-16b
+   decode_32k`` on 512 and the HDC serving cell on 256, each ``ok``, with
+   their trace time, per-device peak, bound and dominant term, and the
+   reference's small-mesh qwen3 cells on a fake (2, 4) world held to the
+   per-device counts the CPU tests hold; (b) the 1x1
+   trace of phase 13's step (qwen3-0.6b whole, bf16, 4 x 512) against that
+   step run on the card: argument bytes equal to the parameters', AdamW
+   state's and batch's bytes, flops equal to ``FlopCounterMode``'s count of
+   the real step, the peak estimate beside ``max_memory_allocated`` and the
+   bound beside ``_train_work``'s; (c) the HDC cell at 1x1: the encoder
+   wrapper's fake launch records the bytes and operations of phase 3's
+   bound formula, and the child's kernel launches, counted over its whole
+   run, are 0; (d) (checked beside phase 5, while phase 4's fleet
+   lives) ``StreamingFleet.stage_probes`` raises on that card fleet and
+   runs on a 64-session CPU fleet.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
@@ -196,8 +213,8 @@ call is profiled (it must run exactly one device kernel) and timed against
 the old chain.  Each path's kernel launches are counted from zero just
 before it and read just after.
 The line before the last is a JSON object with every kernel's launches
-over the paths, times and bound, and phase 15's numbers (``lm_mesh``);
-the last line is the device summary.
+over the paths, times and bound, and phase 15's and 16's numbers
+(``lm_mesh``, ``dryrun``); the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -213,6 +230,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.runtime import roofline  # noqa: E402
 
 PATIENTS = 16
 SESSIONS = 1024
@@ -256,10 +275,11 @@ SWEEP_TESTS = 2
 MONITOR_SESSIONS = 64
 MONITOR_ROUNDS = 6
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
-# 32-bit rate outside the tensor cores, used for the integer/bit operations
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+# the card's figures, one source (``runtime/roofline.py``): HBM bandwidth,
+# and the 32-bit rate outside the tensor cores, used for the integer/bit
+# operations
+PEAK_BYTES_S = roofline.HBM_BW
+PEAK_OPS_S = roofline.PEAK_OPS
 # cycles a second that size a device-side sleep (at least the card's clock)
 SLEEP_HZ = 2.0e9
 
@@ -287,6 +307,7 @@ PATH_KERNELS = {
     "deploy": ("hdc_fleet",),
     "mesh": ("hdc_fleet",),
     "lm_mesh": (),          # the LM path launches none of the five kernels
+    "dryrun": (),           # phase 16's child traces on fake tensors: no launch
 }
 
 
@@ -543,14 +564,13 @@ def check_kernels(shapes: dict) -> KernelCheck:
         kw = dict(window=win, segments=s, seg_len=seg_len,
                   temporal_threshold=max(1, win // 5),
                   spatial_thinning=thin, spatial_threshold=thr)
-        d = s * seg_len
+        enc_work = enc_ops.work(b * f, win, c, k, s, seg_len)
         r = kc.compare("hdc_encoder",
                        f"{case} codes{(b, f, win, c)} S={s} L={seg_len} K={k} "
                        f"thin={thin} thr={thr}", enc_ops.encoder,
                        lambda: enc_ops.encoder(codes, item, elec, **kw),
                        lambda: enc_ref.encoder_plain(codes, item, elec, **kw),
-                       n_bytes=codes.numel() + item.numel() + elec.numel() + b * f * d // 8,
-                       n_ops=codes.numel() * s + b * f * win * d // 32,
+                       n_bytes=enc_work[0], n_ops=enc_work[1],
                        main=main and not thin, reps=10 if main else 5, plain_reps=2)
         if main:
             modes[f"thin_thr{thr}" if thin else "or"] = r
@@ -761,7 +781,8 @@ def check_fused(kc: KernelCheck, g, shapes: dict) -> None:
             encode = lambda f: dense_ops.dense_encoder(  # noqa: E731
                 f, params.item_packed, params.elec_packed, **plain_kw)
             table_bytes = params.item_packed.numel() * 4 + params.elec_packed.numel() * 4
-            n_ops = n * cfg.window * words * (c + 1)
+            work = (frames.numel() + table_bytes + cls.numel() * 4 + n * (n_cls + 1) * 4,
+                    n * cfg.window * words * (c + 1) + n * n_cls * words * 2)
         else:
             s = cfg.segments
             params = IMParams(
@@ -775,14 +796,12 @@ def check_fused(kc: KernelCheck, g, shapes: dict) -> None:
                 frames, params.item_pos, params.elec_pos, cls, **plain_kw)
             encode = lambda f: enc_ops.encoder(  # noqa: E731
                 f, params.item_pos, params.elec_pos, **plain_kw)
-            table_bytes = params.item_pos.numel() + params.elec_pos.numel()
-            n_ops = frames.numel() * s + n * cfg.window * words
+            work = enc_ops.work(n, cfg.window, c, cfg.codes, s, cfg.seg_len, n_cls)
         fused = lambda: ops.encode_score_fused(params, codes, cfg, cls)  # noqa: E731
         r = kc.compare(
             name, f"+AM {case} codes{tuple(codes.shape)} D={cfg.dim} "
             f"classes={n_cls}", ops.encode_score_fused, fused, plain,
-            n_bytes=frames.numel() + table_bytes + cls.numel() * 4 + n * (n_cls + 1) * 4,
-            n_ops=n_ops + n * n_cls * words * 2, main=False,
+            n_bytes=work[0], n_ops=work[1], main=False,
             reps=50 if main else 5, plain_reps=1)
         am_row = kc.rows["hdc_am"]
         am_row["max_abs_err"] = max(am_row["max_abs_err"], r["max_abs_err"])
@@ -1001,7 +1020,7 @@ def serve_fleet(tag: str, res: dict, sessions: int, steady_rounds: int,
         f"{med * 1e3:.3f} ms host+device, {sessions / med:.1f} session-rounds/s, "
         f"{sessions * 256 / med / 1e6:.3f} Mcycles/s "
         f"(all rounds ms: {', '.join(f'{x * 1e3:.3f}' for x in round_s)})")
-    res.update(pushes=pushes, decisions=decisions, owners=owners)
+    res.update(pushes=pushes, decisions=decisions, owners=owners, fleet=fleet)
 
 
 def compare_with_plain(tag: str, res: dict, compare_sessions: int) -> None:
@@ -2130,6 +2149,21 @@ def reliability_phase(tag: str, sparse_bank: dict, dense_bank: dict, records) ->
     return out
 
 
+def kernel_wrappers() -> dict:
+    """The wrappers whose ``launches`` counts the kernels line reads."""
+    from repro_torch.kernels.dense_hdc import ops as dense_ops
+    from repro_torch.kernels.hdc_am.ops import am_search
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
+    from repro_torch.kernels.lbp.ops import lbp_codes
+
+    return {"lbp": lbp_codes, "hdc_encoder": enc_ops.encoder,
+            "hdc_am": am_search, "hdc_fleet": fleet_counts_kernel,
+            "dense_hdc": dense_ops.dense_encoder,
+            "am_epilogue_sparse": enc_ops.encode_score_fused,
+            "am_epilogue_dense": dense_ops.encode_score_fused}
+
+
 class Launches:
     """Reads each path's kernel launches, counted from zero."""
 
@@ -2921,7 +2955,6 @@ def mesh_rank_main(rank: int, world: int, work: str) -> int:
 
     import torch.distributed as dist
 
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve.fleet import StreamingFleet
@@ -3278,8 +3311,8 @@ def _lm_arch(arch: str) -> LMArch:
 LM_CLIS = (["--arch", "qwen3-0.6b", "--batch", "2", "--prompt-len", "128", "--gen", "16"],
            ["--arch", "seamless-m4t-medium", "--batch", "2", "--prompt-len", "128",
             "--gen", "16"])
-# published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
-PEAK_BF16_FLOPS_S = 989e12
+# the card's dense bf16 tensor-core peak (``runtime/roofline.py``)
+PEAK_BF16_FLOPS_S = roofline.PEAK_FLOPS
 
 
 class _RouteLog:
@@ -4447,25 +4480,246 @@ def lm_mesh_phase(tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the dry-run on fake ranks, and the fleet's stage probes
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"), ("deepseek-moe-16b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 900     # seconds the phase's child process may take
+# (a) on a fake (2, 4) world: the reference's small-mesh qwen3 (2 KV heads
+# over 4 model ranks), batch 4 x 64, float32, and the per-device counts that
+# tests/test_torch_dryrun.py holds on the CPU: prefill and decode flops
+# (the reference's analyze_hlo count plus the named K/V excess), the
+# arguments' bytes of every step, and the train step within 1.5x the
+# reference's 339,738,624 flops.  Counting DTensor's global-shape
+# bookkeeping would break every one of them.
+DRYRUN_SMALL = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, vocab=1024, d_ff=512)
+DRYRUN_SMALL_FLOPS = {"prefill": 105_119_744, "decode": 1_900_544}
+DRYRUN_SMALL_ARG_BYTES = {"train": 2_771_972, "prefill": 924_160, "decode": 989_192}
+DRYRUN_SMALL_TRAIN_REF = 339_738_624
+PROBE_SESSIONS = 64      # (d): the CPU fleet's sessions
+
+
+def stage_probes_check(tag: str, res: dict) -> dict:
+    """Phase 16 (d), run beside phase 5 while phase 4's fleet lives:
+    ``stage_probes`` raises on that card fleet, and on a CPU fleet of
+    PROBE_SESSIONS sessions over the same bank returns the four stages,
+    each run once more here and timed on the host (CPU time, not the
+    card's) with its output's shape checked."""
+    from repro_torch.serve.fleet import StreamingFleet
+
+    batch = np.stack(res["pushes"][1])                    # a steady round of 256 cycles
+    try:
+        res["fleet"].stage_probes(batch)
+        raised = False
+    except ValueError:
+        raised = True
+    expect(raised, f"{tag}: stage_probes ran on the card fleet")
+    cpu_bank = {p: pipe.to("cpu") for p, pipe in res["bank"].items()}
+    fleet = StreamingFleet(cpu_bank, res["owners"][:PROBE_SESSIONS])
+    probes = fleet.stage_probes(batch[:PROBE_SESSIONS])
+    cfg, k1 = res["cfg"], batch.shape[1] // res["cfg"].window + 1
+    shapes = {"spatial": (PROBE_SESSIONS, batch.shape[1], cfg.words),
+              "temporal": (PROBE_SESSIONS, k1, cfg.dim),
+              "am": (PROBE_SESSIONS, k1 - 1, 2)}
+    out = {"card_raises": raised, "sessions": PROBE_SESSIONS, "cpu_ms": {}}
+    for stage, (fn, scale) in probes.items():
+        t0 = time.perf_counter()
+        got = fn()
+        out["cpu_ms"][stage] = (time.perf_counter() - t0) * 1e3
+        if stage in shapes:
+            expect(tuple(got.shape) == shapes[stage],
+                   f"{tag}: stage {stage} gave {tuple(got.shape)}, not {shapes[stage]}")
+        expect(scale == (1 if stage == "ingest" else fleet.n_tiles), f"{tag}: {stage} scale")
+    log(f"[{tag}] stage_probes: the card fleet raises; a {PROBE_SESSIONS}-session CPU fleet's "
+        "stages, host ms (CPU): " + ", ".join(f"{k} {v:.3f}" for k, v in out["cpu_ms"].items()))
+    return out
+
+
+def _cell_summary(rec: dict) -> dict:
+    mem, rf = rec["memory"], rec.get("roofline", {})
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "status": rec["status"], "lower_s": rec["lower_s"],
+            "peak_gb": mem["peak_bytes_per_device_est"] / 1e9,
+            "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes accessed"],
+            "collectives": rec["collectives"], "kernels": rec.get("kernels"),
+            "bound_ms": rf["step_time_bound_s"] * 1e3 if rf else None,
+            "bound_by": rf.get("bottleneck")}
+
+
+def dryrun_main(work: str) -> int:
+    """Phase 16's child process (the fake process group must not meet the
+    parent's NCCL groups): (a) DRYRUN_CELLS and the HDC serving cell on 256
+    and 512 fake ranks, each ``ok``; (b) the 1x1 dry-run of phase 13's step
+    (TRAIN_ARCH whole, bf16, TRAIN_BATCH x TRAIN_SEQ) against that step run
+    on the card: argument bytes equal to the parameters', AdamW state's and
+    batch's bytes on the card, flops equal to ``FlopCounterMode``'s count of
+    the real step, the peak estimate beside ``max_memory_allocated`` and the
+    bound beside ``_train_work``'s; (c) the HDC cell at 1x1: the encoder's
+    one fake launch records the bytes and operations of phase 3's bound
+    formula (``hdc_encoder/ops.py::work``) at that shape.  Writes
+    ``work/dryrun.json``, with DRYRUN_SMALL's cells on a fake (2, 4) world
+    held to the CPU test's counts, and the kernel wrappers' launch counts over the
+    whole child run, which the parent reports and holds at 0."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm as lmdata
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.config import param_count
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import flatten, initialize
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as steps_mod
+
+    t0 = time.perf_counter()
+    out: dict = {"fake_device": str(dryrun.fake_device()), "cells": []}
+    arts = str(Path(work) / "cells")
+    launches = Launches(kernel_wrappers())
+    launches.start()
+    try:
+        for arch, shape, mk in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, mk, arts, force=True)
+            expect(rec["status"] == "ok", f"dryrun {arch} {shape} {mk}: {rec.get('error')}")
+            out["cells"].append(_cell_summary(rec))
+        rec = dryrun.run_hdc(arts, "single", force=True)
+        expect(rec["status"] == "ok", f"dryrun hdc single: {rec.get('error')}")
+        out["cells"].append({**_cell_summary(rec), "predictions_per_call":
+                             rec["predictions_per_call"]})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    small_cfg = get_config("qwen3-0.6b").reduced(**DRYRUN_SMALL)
+    mesh_mod.fake_world(8)
+    try:
+        mesh = mesh_mod.make_mesh((2, 4), ("data", "model"), device=dryrun.fake_device())
+        small = {kind: dryrun.trace_cell(small_cfg, lmdata.ShapeSpec(kind, 64, 4, kind), mesh,
+                                         seq_sharded_kv=False)
+                 for kind in ("train", "prefill", "decode")}
+    finally:
+        dist.destroy_process_group()
+    out["small_2x4"] = {k: {"flops": v["cost"]["flops"],
+                            "arg_bytes": v["memory"]["argument_size_in_bytes"],
+                            "peak_bytes": v["memory"]["peak_bytes_per_device_est"],
+                            "collectives": v["collectives"]} for k, v in small.items()}
+    for kind, v in out["small_2x4"].items():
+        log(f"[dryrun] (a) reduced qwen3 {kind} on a fake (2, 4) world: flops {v['flops']}, "
+            f"argument bytes {v['arg_bytes']}, peak {v['peak_bytes']}, collectives "
+            f"{v['collectives']}")
+        expect(v["arg_bytes"] == DRYRUN_SMALL_ARG_BYTES[kind],
+               f"dryrun (a) {kind} 2x4: argument bytes {v['arg_bytes']}")
+    for kind, want in DRYRUN_SMALL_FLOPS.items():
+        expect(out["small_2x4"][kind]["flops"] == want,
+               f"dryrun (a) {kind} 2x4: flops {out['small_2x4'][kind]['flops']}, not {want}")
+    expect(out["small_2x4"]["train"]["flops"] <= 1.5 * DRYRUN_SMALL_TRAIN_REF,
+           f"dryrun (a) train 2x4: flops {out['small_2x4']['train']['flops']}")
+    for c in out["cells"]:
+        log(f"[dryrun] (a) {c['arch']} {c['shape']} {c['mesh']}: {c['status']} in "
+            f"{c['lower_s']} s; peak {c['peak_gb']:.2f} GB a device; "
+            + (f"bound {c['bound_ms']:.3f} ms ({c['bound_by']})" if c["bound_ms"] is not None
+               else f"kernels {c['kernels']}"))
+
+    # (b) phase 13's step: traced at 1x1, then run on the card
+    cfg = get_config(TRAIN_ARCH)
+    shape = lmdata.ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = adamw.OptConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    tr = dryrun.trace_cell(cfg, shape, None, opt=opt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = initialize(torch.Generator(device="cuda").manual_seed(SEED), model_spec(cfg),
+                        torch.bfloat16, "cuda")
+    state = adamw.init_state(params, opt)
+    batch = lmdata.batch_for_step(cfg, shape, 0)
+    leaves = [*flatten(params).values(), *flatten(state["m"]).values(),
+              *flatten(state["v"]).values(), state["step"], *batch.values()]
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    step = steps_mod.make_train_step(cfg, opt)
+    with FlopCounterMode(display=False) as fc:
+        _, _, loss, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v.numel() for v in flatten(params).values())
+    param_bytes = sum(v.numel() * v.element_size() for v in flatten(params).values())
+    state_bytes = sum(v.numel() * v.element_size()
+                      for part in ("m", "v") for v in flatten(state[part]).values())
+    bound13 = _train_work(cfg, n_params, flatten(params)["embed"].numel(), param_bytes,
+                          state_bytes, TRAIN_BATCH, TRAIN_SEQ)
+    n_total, n_active = param_count(cfg)
+    terms = roofline.roofline_terms(tr["cost"], tr["collectives"], cfg, shape, None,
+                                    n_total=n_total, n_active=n_active)
+    b = {"arg_bytes_dryrun": tr["memory"]["argument_size_in_bytes"], "arg_bytes_card": arg_bytes,
+         "flops_dryrun": tr["cost"]["flops"], "flops_card": fc.get_total_flops(),
+         "peak_est_gb": tr["memory"]["peak_bytes_per_device_est"] / 1e9,
+         "max_memory_allocated_gb": peak / 1e9, "lower_s": tr["lower_s"],
+         "bytes_dryrun": tr["cost"]["bytes accessed"],
+         "bound_ms": terms["step_time_bound_s"] * 1e3, "bound_by": terms["bottleneck"],
+         "train_work_bound_ms": bound13["bound_ms"], "loss": float(loss)}
+    out["phase13_step"] = b
+    log(f"[dryrun] (b) {TRAIN_ARCH} whole, bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, 1x1: argument "
+        f"bytes {b['arg_bytes_dryrun']} traced, {b['arg_bytes_card']} on the card; flops "
+        f"{b['flops_dryrun']} traced, {b['flops_card']} FlopCounterMode on the card; peak "
+        f"estimate {b['peak_est_gb']:.2f} GB, max_memory_allocated {b['max_memory_allocated_gb']:.2f}"
+        f" GB; bound {b['bound_ms']:.3f} ms ({b['bound_by']}, {b['bytes_dryrun'] / 1e9:.2f} GB "
+        f"moved) beside _train_work's {b['train_work_bound_ms']:.3f} ms; trace "
+        f"{b['lower_s']:.1f} s")
+    expect(b["arg_bytes_dryrun"] == b["arg_bytes_card"], "dryrun (b): argument bytes differ")
+    expect(b["flops_dryrun"] == b["flops_card"], "dryrun (b): flops differ")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    # (c) the HDC cell at 1x1: the encoder's fake launch against the formula
+    h = dryrun.trace_hdc(None)
+    frames = dryrun.HDC_STREAMS * (dryrun.HDC_CYCLES // 256)
+    want = enc_ops.work(frames, 256, 64, 64, 8, 128, n_classes=2)
+    got = h["kernels"].get("hdc_encoder", {})
+    out["hdc_1x1"] = {"frames": frames, "kernel": got, "work": list(want)}
+    log(f"[dryrun] (c) hdc 1x1, {dryrun.HDC_STREAMS} streams x {dryrun.HDC_CYCLES} cycles: "
+        f"the encoder's fake launch {got}; the bound formula {want[0]} bytes, {want[1]} "
+        "operations")
+    expect(got == {"launches": 1, "bytes": want[0], "int_ops": want[1]},
+           "dryrun (c): the encoder's recorded work differs from the bound formula")
+    launches.stop("dryrun")
+    out["launches"] = launches.paths["dryrun"]
+    out["child_s"] = time.perf_counter() - t0
+    with open(Path(work) / "dryrun.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dryrun_phase(tag: str, probes: dict) -> dict:
+    """Phase 16: ``dryrun_main`` in a child process, and (d), the stage
+    probes checked beside phase 5 (``probes``)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dryrun_", dir=str(ROOT / "build"))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun", work],
+                          capture_output=True, text=True, timeout=DRYRUN_TIMEOUT, cwd=str(ROOT))
+    for line in proc.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            log(line)
+    expect(proc.returncode == 0,
+           f"{tag}: the dry-run child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(Path(work) / "dryrun.json") as f:
+        out = json.load(f)
+    out["stage_probes"] = probes
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase 16 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.pipeline import HDCConfig
     from repro_torch.data import ieeg
-    from repro_torch.kernels.dense_hdc import ops as dense_ops
-    from repro_torch.kernels.hdc_am.ops import am_search
-    from repro_torch.kernels.hdc_encoder import ops as enc_ops
-    from repro_torch.kernels.hdc_fleet.ops import fleet_counts_kernel
-    from repro_torch.kernels.lbp.ops import lbp_codes
 
-    launches = Launches({"lbp": lbp_codes, "hdc_encoder": enc_ops.encoder,
-                         "hdc_am": am_search, "hdc_fleet": fleet_counts_kernel,
-                         "dense_hdc": dense_ops.dense_encoder,
-                         "am_epilogue_sparse": enc_ops.encode_score_fused,
-                         "am_epilogue_dense": dense_ops.encode_score_fused})
+    launches = Launches(kernel_wrappers())
     global CARD
     t_start = time.perf_counter()
     CARD = environment()
@@ -4500,6 +4754,8 @@ def main() -> int:
     launches.stop("sparse_compim")
     probes = {"sparse_compim": infer_probe("sparse_compim", sparse)}
     compare_with_plain("sparse_compim", sparse, COMPARE_SESSIONS)
+    stage_probes = stage_probes_check("sparse_compim", sparse)    # phase 16 (d)
+    del sparse["fleet"]
 
     # phase 6: dense, the same codes; fit_iterative and adapt, short
     launches.start()
@@ -4637,8 +4893,18 @@ def main() -> int:
                "full": {k: v for k, v in lm_mesh["full"].items() if k != "step_ms"},
                "phase_s": lm_mesh["phase_s"], "card": CARD}
     log("[lm_mesh] " + json.dumps(summary))
+    # phase 16: the dry-run on fake ranks (a child process, which counts its
+    # own launches), the stage probes
+    dry = dryrun_phase("dryrun", stage_probes)
+    launches.paths["dryrun"] = dry.pop("launches")
+    expect(not any(launches.paths["dryrun"].values()),
+           f"dryrun: the phase launched {launches.paths['dryrun']}")
+    for row in rows:
+        row["path_launches"]["dryrun"] = launches.paths["dryrun"][row["name"]]
+    dry["card"] = CARD
+    log("[dryrun] " + json.dumps(dry))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows, "lm_mesh": summary}), flush=True)
+    print(json.dumps({"kernels": rows, "lm_mesh": summary, "dryrun": dry}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4648,4 +4914,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:   # one rank of phase 14 (b)
         sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--dryrun"]:      # phase 16's child process
+        sys.exit(dryrun_main(sys.argv[2]))
     sys.exit(main())

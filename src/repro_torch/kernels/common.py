@@ -2,20 +2,27 @@
 
 A wrapper sends CPU tensors to its plain PyTorch version and CUDA tensors to
 its CUDA kernel.  There is no fallback: a CUDA tensor that the kernel cannot
-take raises, and so does a mix of devices.
+take raises, and so does a mix of devices.  Fake tensors (``FakeTensorMode``,
+the dry-run's trace) go the kernel's way on any device: a wrapper that can
+trace its launch records it (``runtime/op_cost.py``) and launches nothing; a
+mix of fake and real operands raises.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True for CPU tensors (plain version), False for CUDA tensors
     (kernel); raises for anything else.  Reads the tensors' flags, not their
-    ``device`` objects: this runs on every launch."""
+    ``device`` objects: this runs on every launch.  Fake tensors: False
+    (the kernel's launch wrapper traces them).  A CUDA build makes them
+    CUDA tensors, which take the kernel's way with no further test; only
+    CPU ones are looked at here."""
     if all(t.is_cpu for t in tensors):
-        return True
+        return not all_fake(*tensors)
     if all(t.is_cuda for t in tensors):
         index = tensors[0].get_device()
         if any(t.get_device() != index for t in tensors):
@@ -23,6 +30,15 @@ def use_plain(*tensors: torch.Tensor) -> bool:
         return False
     kinds = sorted({t.device.type for t in tensors})
     raise ValueError(f"kernel operands on unsupported devices: {kinds}")
+
+
+def all_fake(*tensors: torch.Tensor) -> bool:
+    """True when every operand is fake (the dry-run's trace), False when
+    none is; a mix of fake and real operands raises."""
+    fake = [isinstance(t, FakeTensor) for t in tensors]
+    if any(fake) and not all(fake):
+        raise ValueError("kernel operands mix fake and real tensors")
+    return fake[0]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

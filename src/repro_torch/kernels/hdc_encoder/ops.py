@@ -19,17 +19,43 @@ import torch
 from repro_torch.core.classifier import HDCConfig, frame_view
 from repro_torch.core.im import IMParams
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, stream_rows, use_plain
+from repro_torch.kernels.common import all_fake, require, stream_rows, use_plain
 from repro_torch.kernels.hdc_encoder.ref import encode_score_plain, encoder_plain
+from repro_torch.runtime import op_cost
+
+
+def work(n_frames: int, window: int, channels: int, codes_k: int, segments: int,
+         seg_len: int, n_classes: int = 0) -> tuple[int, int]:
+    """(bytes, integer operations) of one launch over ``n_frames`` frames:
+    the bound of the encoder's row in PERF.md's kernel table.  Bytes: the
+    codes, the CompIM table (C, K, S) and the electrode positions once, and
+    the frame HVs written, or with ``n_classes`` class rows the rows read
+    and the scores and predictions written.  Operations: a bind per (frame,
+    cycle, channel, segment), a word operation per (frame, cycle, word),
+    and two per (frame, class, word) in the AM epilogue (AND, popcount)."""
+    words = segments * seg_len // 32
+    n_bytes = (n_frames * window * channels + channels * codes_k * segments
+               + channels * segments)
+    n_ops = n_frames * window * channels * segments + n_frames * window * words
+    if n_classes:
+        n_bytes += n_classes * words * 4 + n_frames * (n_classes + 1) * 4
+        n_ops += n_frames * n_classes * words * 2
+    else:
+        n_bytes += n_frames * words * 4
+    return n_bytes, n_ops
 
 
 def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
             scores, preds, *, window, segments, seg_len, temporal_threshold,
-            spatial_thinning, spatial_threshold) -> None:
+            spatial_thinning, spatial_threshold) -> bool:
     """Check the tables and classes and launch over ``n_frames`` frames of
     codes (uint8, checked by the caller), ``per_row`` to a batch row, rows
     ``pitch`` bytes apart: frame words into ``out`` (or None), the AM
-    epilogue's scores and predictions when ``classes`` is given."""
+    epilogue's scores and predictions when ``classes`` is given.  True when
+    it launched.  On fake tensors (the dry-run) the outputs are already
+    made: the launch and its ``work`` are recorded in ``op_cost``, nothing
+    runs, the wrappers' ``launches`` counts stay as they were, and False is
+    returned."""
     c = codes.shape[-1]
     require(item_pos, "item_pos", torch.uint8, (c, None, segments))
     require(elec, "elec", torch.uint8, (c, segments))
@@ -43,6 +69,11 @@ def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
         require(classes, "class_hvs", torch.int32, (None, dim // 32))
         if n_cls < 1:
             raise ValueError("class_hvs: at least one class row")
+    operands = (codes, item_pos, elec) + (() if classes is None else (classes,))
+    if all_fake(*operands):
+        op_cost.record_kernel("hdc_encoder", *work(
+            n_frames, window, c, item_pos.shape[1], segments, seg_len, n_cls))
+        return False
     err = build.lib().hdc_encoder_launch(
         codes.data_ptr(), item_pos.data_ptr(), elec.data_ptr(),
         None if out is None else out.data_ptr(), n_frames, window, c,
@@ -54,6 +85,7 @@ def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
         build.stream_ptr(codes))
     build.check(err, "hdc_encoder")
     encoder.launches += 1
+    return True
 
 
 def encoder(codes: torch.Tensor, item_pos: torch.Tensor, elec: torch.Tensor,
@@ -112,9 +144,9 @@ def _stream_launch(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
         preds = torch.empty(lead, dtype=torch.int32, device=dev)
         res = scores, preds
     if lead[0] * per_row:
-        _launch(codes, lead[0] * per_row, per_row, pitch, params.item_pos,
-                params.elec_pos, out, class_hvs, scores, preds, **_cfg_kw(cfg))
-        if class_hvs is not None:
+        launched = _launch(codes, lead[0] * per_row, per_row, pitch, params.item_pos,
+                           params.elec_pos, out, class_hvs, scores, preds, **_cfg_kw(cfg))
+        if launched and class_hvs is not None:
             encode_score_fused.launches += 1
     return res
 

@@ -42,6 +42,33 @@ from repro_torch.device import resolve_device
 DEFAULT_TIMEOUT_S = 300.0
 
 
+def fake_world(n: int) -> None:
+    """Start the ``"fake"`` process group as rank 0 of ``n`` ranks (256 or
+    512 for the production meshes): the counterpart of the reference's
+    placeholder devices (``XLA_FLAGS`` before jax is imported, guarded by
+    ``host_device_count_or_die``).  Its collectives move nothing and return
+    at once, so one process traces one rank's step (``launch/dryrun.py``,
+    on fake tensors); ``make_mesh`` then builds its mesh over it.  A fake
+    group of ``n`` ranks already started is used as it is; a real process
+    group raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a fake world cannot start inside a real process group "
+                f"({dist.get_backend()!r}, {dist.get_world_size()} ranks)")
+        if dist.get_world_size() != n:
+            raise RuntimeError(f"the fake world has {dist.get_world_size()} ranks, "
+                               f"not {n}")
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def is_fake_world() -> bool:
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None,
                          timeout_s: float = DEFAULT_TIMEOUT_S) -> DeviceMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)

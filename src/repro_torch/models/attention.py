@@ -29,6 +29,8 @@ gathered.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -66,17 +68,43 @@ def attention_spec(cfg: ArchConfig, cross: bool = False) -> dict:
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _tp(ctx) -> int:
+    """The size of the ``tp`` axes (1 off a mesh)."""
+    if not shd.on_mesh(ctx):
+        return 1
+    return math.prod(ctx.axis_sizes.get(a, 1) for a in ctx.rules.get("tp", ()))
+
+
+def _replicated_over_tp(fn, x: torch.Tensor, w: torch.Tensor, ctx) -> torch.Tensor:
+    """``fn(x, w)`` where the ``tp`` axes do not divide the heads of ``w``
+    (2 KV heads over a 4-way ``model`` axis): ``_sanitize`` replicates the
+    weight's heads, and the reference's product runs replicated over
+    ``tp`` too.  Each rank computes its batch rows' whole product from the
+    weight's gathered ``fsdp`` shards.  Left to itself, DTensor's product
+    may split the flat (H * hd) dim over ``tp`` (a slice of a replicated
+    operand costs nothing), which no head split can carry."""
+    why = "a product whose heads the tp axes do not divide runs replicated over tp"
+    x = shd.reshard(x, ("batch",) + (None,) * (x.ndim - 1), ctx, why)
+    w = shd.reshard(w, (None,) * w.ndim, ctx, why)
+    xp, wp = tuple(x.placements), tuple(w.placements)
+    return shd.local(fn, ctx, (xp, wp), (xp,), (xp, shd.partial_where(wp, xp, 0)))(x, w)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, ctx=None) -> torch.Tensor:
     """(B, L, d) x (d, H, hd) -> (B, L, H, hd)."""
     d, h, hd = w.shape
+    if h % _tp(ctx):
+        return _replicated_over_tp(_proj, x, w, ctx)
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
-def _out(x: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out(x: torch.Tensor, wo: torch.Tensor, ctx=None) -> torch.Tensor:
     """(B, L, H, hd) x (H, hd, d) -> (B, L, d), as one 2-D product (what
     ``matmul`` folds a contiguous operand into; a DTensor's fold follows
     its local layout, which a redistribution may leave strided)."""
     h, hd, d = wo.shape
+    if h % _tp(ctx):
+        return _replicated_over_tp(_out, x, wo, ctx)
     b, l = x.shape[:2]
     return (x.reshape(b * l, h * hd) @ wo.reshape(h * hd, d)).reshape(b, l, d)
 
@@ -86,11 +114,28 @@ def _scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (float32, bfloat16 or float16), to nearest
+    even, as ``torch.tensor(x, dtype=dtype).item()`` gives it, without a
+    tensor: a traced step (fake tensors, a checkpoint's recompute) cannot
+    read one back."""
+    if dtype == torch.float16:
+        return float(np.float16(np.float32(x)))
+    x32 = np.float32(x)
+    if dtype == torch.float32:
+        return float(x32)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no rounding to {dtype}")
+    bits = int(x32.view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(bits).view(np.float32))
+
+
 def _project_qkv(params, x, kv_x, cfg: ArchConfig, ctx, positions, kv_positions,
                  rope: bool):
-    q = _proj(x, params["wq"])
-    k = _proj(kv_x, params["wk"])
-    v = _proj(kv_x, params["wv"])
+    q = _proj(x, params["wq"], ctx)
+    k = _proj(kv_x, params["wk"], ctx)
+    v = _proj(kv_x, params["wv"], ctx)
     if cfg.qk_norm and "q_norm" in params:   # qk-norm before RoPE
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
@@ -128,7 +173,7 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     cdt = torch.bfloat16 if bf16_intermediates else torch.float32
-    scale = torch.tensor(_scale(hd), dtype=cdt).item()
+    scale = _rounded(_scale(hd), cdt)
     qt = (q.to(cdt) * scale).reshape(b, lq, n_kv, g, hd).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1).to(cdt)                              # (B,KV,hd,Lk)
     vt = v.permute(0, 2, 1, 3).to(cdt)                              # (B,KV,Lk,hd)
@@ -186,19 +231,34 @@ def _attend_chunks(q, k, v, cfg: ArchConfig, ctx, *, causal: bool,
     """``_chunked_attention`` (from position 0) of q (B, Lq, H, hd) over
     k/v (B, Lk, KV, hd); on a mesh on each rank's (batch, heads) block,
     which needs no collective: a block of H/M query heads reads the block
-    of KV/M heads of its group."""
+    of KV/M heads of its group.  Where the ``tp`` axes do not divide the KV
+    heads, K/V are replicated over them (``_proj``) and each rank reads the
+    KV head of each of its query heads, as the reference's partitioner
+    computes q's head shards against replicated K/V."""
     kw = dict(causal=causal, q_offset=0, kv_chunk=kv_chunk or cfg.attn_kv_chunk,
               bf16_intermediates=cfg.attn_bf16_intermediates)
     if not shd.on_mesh(ctx):
         return _chunked_attention(q, k, v, **kw)
-    if ([p == Shard(2) for p in q.placements] != [p == Shard(2) for p in k.placements]
-            or tuple(k.placements) != tuple(v.placements)):
-        why = "the KV heads do not shard as the query heads (KV % tp): both replicate"
-        q = shd.reshard(q, ("batch", None, None, None), ctx, why)
-        k = shd.reshard(k, ("batch", None, None, None), ctx, why)
-        v = shd.reshard(v, ("batch", None, None, None), ctx, why)
-    return shd.local(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, **kw), ctx,
-                     (q.placements, k.placements, v.placements), (q.placements,))(q, k, v)
+    qp, kp = tuple(q.placements), tuple(k.placements)
+    if [p == Shard(2) for p in qp] == [p == Shard(2) for p in kp]:
+        return shd.local(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, **kw), ctx,
+                         (qp, kp, kp), (qp,))(q, k, v)
+    block, _ = shd.shard_block(qp, 2, ctx)
+    h_loc = q.shape[2] // shd.shard_count(qp, 2, ctx)
+    g = q.shape[2] // k.shape[2]
+    heads = [(block * h_loc + i) // g for i in range(h_loc)]
+    # a non-decreasing run of KV heads: each head with its query heads' count,
+    # gathered from views, so no index tensor goes to the device
+    runs = [(j, heads.count(j)) for j in range(heads[0], heads[-1] + 1)]
+
+    def pick(t):
+        return torch.cat([t[:, :, j:j + 1].expand(-1, -1, n, -1) for j, n in runs], dim=2)
+
+    def attend(q_, k_, v_):
+        return _chunked_attention(q_, pick(k_), pick(v_), **kw)
+
+    kg = shd.partial_where(kp, qp, 2)    # each rank's KV heads get its heads' gradient
+    return shd.local(attend, ctx, (qp, kp, kp), (qp,), (qp, kg, kg))(q, k, v)
 
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None, *,
@@ -206,7 +266,7 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None, *,
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(params, x, x, cfg, ctx, positions, positions, True)
     out = _attend_chunks(q, k, v, cfg, ctx, causal=causal, kv_chunk=kv_chunk)
-    return _out(out, params["wo"])
+    return _out(out, params["wo"], ctx)
 
 
 def attention_cross(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
@@ -216,7 +276,7 @@ def attention_cross(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
     (B, Lk, d): no RoPE, no mask."""
     q, k, v = _project_qkv(params, x, enc_out, cfg, ctx, None, None, False)
     out = _attend_chunks(q, k, v, cfg, ctx, causal=False, kv_chunk=kv_chunk)
-    return _out(out, params["wo"])
+    return _out(out, params["wo"], ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +291,7 @@ def attention_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None, 
     out = _attend_chunks(q, k, v, cfg, ctx, causal=True, kv_chunk=kv_chunk)
     k = constrain(k, ("batch", "kv_seq", None, "kv_tp"), ctx)
     v = constrain(v, ("batch", "kv_seq", None, "kv_tp"), ctx)
-    return _out(out, params["wo"]), (k, v)
+    return _out(out, params["wo"], ctx), (k, v)
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
@@ -250,9 +310,9 @@ def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
     s = k_cache.shape[1]
     if not 0 <= pos < s:
         raise IndexError(f"decode position {pos} outside the cache's {s} positions")
-    q = _proj(x, params["wq"])
-    k_new = _proj(x, params["wk"])
-    v_new = _proj(x, params["wv"])
+    q = _proj(x, params["wq"], ctx)
+    k_new = _proj(x, params["wk"], ctx)
+    v_new = _proj(x, params["wv"], ctx)
     if cfg.qk_norm and "q_norm" in params:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k_new = rmsnorm(k_new, params["k_norm"], cfg.norm_eps)
@@ -271,7 +331,7 @@ def attention_decode(params: dict, x: torch.Tensor, cache: tuple, pos: int,
         mask = torch.arange(s, device=x.device) <= pos   # scores: (B, KV, G, S)
         out = _attend_cache(torch.where(mask, scores, float("-inf")), v_cache)
         out = out.reshape(b, 1, cfg.n_heads, -1)
-    return _out(out.to(x.dtype), params["wo"]), (k_cache, v_cache)
+    return _out(out.to(x.dtype), params["wo"], ctx), (k_cache, v_cache)
 
 
 def _write_row(cache: torch.Tensor, pos: int, new: torch.Tensor, ctx) -> None:
@@ -308,10 +368,11 @@ def _attend_sharded(q, k_cache, v_cache, pos: int, cfg: ArchConfig, ctx):
     hd, n_kv = cfg.resolved_head_dim, cfg.n_kv_heads
     g = cfg.n_heads // n_kv
     kp = tuple(k_cache.placements)
-    # q grouped (B, KV, G, hd), its hd placed as the cache's hd (kv_tp)
+    # q's hd placed as the cache's hd (kv_tp), its heads whole (a block of
+    # H / tp heads need not be whole KV groups), then grouped (B, KV, G, hd)
+    q = shd.reshard(q, ("batch", None, None, "kv_tp"), ctx,
+                    "the query meets the cache's hd shards (kv_tp)")
     qg = q.reshape(b, n_kv, g, hd)
-    qg = shd.reshard(qg, ("batch", None, None, "kv_tp"), ctx,
-                     "the grouped query meets the cache's hd shards (kv_tp)")
     block, s_axes = shd.shard_block(kp, 1, ctx)
     tp_axes = shd.shard_block(kp, 3, ctx)[1]
     s_groups = [ctx.mesh.get_group(a) for a in s_axes]
@@ -367,16 +428,16 @@ def attention_cross_decode(params: dict, x: torch.Tensor, cross_cache: tuple,
     (k, v) cache made from the encoder output at prefill, scored in float32
     over every encoder position."""
     k_cache, v_cache = cross_cache
-    q = _proj(x, params["wq"])
+    q = _proj(x, params["wq"], ctx)
     if shd.on_mesh(ctx):
         out = _attend_sharded(q, k_cache, v_cache, k_cache.shape[1] - 1, cfg, ctx)
     else:
         out = _attend_cache(_grouped_scores(q, k_cache, cfg), v_cache)
         out = out.reshape(x.shape[0], 1, cfg.n_heads, -1)
-    return _out(out.to(x.dtype), params["wo"])
+    return _out(out.to(x.dtype), params["wo"], ctx)
 
 
-def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor) -> tuple:
+def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor, ctx=None) -> tuple:
     """The static cross-attention (k, v) cache, (B, Le, KV, hd) each,
     projected once at prefill."""
-    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+    return _proj(enc_out, params["wk"], ctx), _proj(enc_out, params["wv"], ctx)

@@ -45,11 +45,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
-    return (F.silu(gate) * up) @ params["w_down"]
+def mlp(params: dict, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """SwiGLU MLP.  On a mesh (``ctx``) the weights' fsdp shards are
+    gathered first, so gate/up keep their tp columns and down its tp rows
+    beside the batch's rows, as the reference's partitioner runs them; left
+    to itself, DTensor may shard a product's contraction over the data axis
+    and gather d_ff instead (cheaper to move at a few hundred tokens), which
+    repeats the product on every tp rank."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if shd.on_mesh(ctx):
+        why = "the MLP's fsdp shards gathered for a tp-sharded product"
+        wg = shd.reshard(wg, (None, "tp"), ctx, why)
+        wu = shd.reshard(wu, (None, "tp"), ctx, why)
+        wd = shd.reshard(wd, ("tp", None), ctx, why)
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

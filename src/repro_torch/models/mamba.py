@@ -65,7 +65,7 @@ def mamba_spec(cfg: ArchConfig) -> dict:
     }
 
 
-def _ssm_inputs(params, xc: torch.Tensor, cfg: ArchConfig, mask=None):
+def _ssm_inputs(params, xc: torch.Tensor, cfg: ArchConfig, mask=None, ctx=None):
     """xc: (B, L, di) post-conv activations -> da (B, L, di, st), dbx, c.
 
     mask: optional (L,) validity; masked steps get dt = 0, so da = 1 and
@@ -75,6 +75,11 @@ def _ssm_inputs(params, xc: torch.Tensor, cfg: ArchConfig, mask=None):
     stay in the activation dtype; ``a``, ``da`` and ``dbx`` are float32."""
     st, dtr = cfg.ssm_state, cfg.dt_rank
     proj = xc @ params["x_proj"]
+    # x_proj contracts the tp-sharded d_inner: a partial sum on a mesh, summed
+    # here as the reference's partitioner does (torch 2.11 plans a move from
+    # Shard to Partial that it cannot carry out when left to choose)
+    proj = shd.reshard(proj, ("batch", None, None), ctx,
+                       "x_proj's partial sums over tp reduced before the split")
     dt, b, c = proj.split([dtr, st, st], dim=-1)
     dt = F.softplus(dt @ params["dt_proj_w"] + params["dt_proj_b"])   # (B,L,di)
     if mask is not None:
@@ -85,9 +90,9 @@ def _ssm_inputs(params, xc: torch.Tensor, cfg: ArchConfig, mask=None):
     return da, dbx, c.float()
 
 
-def _conv_train(params, x: torch.Tensor, k: int) -> torch.Tensor:
+def _conv_train(params, x: torch.Tensor, k: int, ctx=None) -> torch.Tensor:
     """Causal depthwise conv over time: x (B, L, di)."""
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    pad = shd.pad(x, (0, 0, k - 1, 0), ctx)
     out = sum(pad[:, i:i + x.shape[1]] * params["conv_w"][i] for i in range(k))
     return out + params["conv_b"]
 
@@ -188,10 +193,10 @@ def mamba_train(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None) -> tor
     bsz, l, _ = x.shape
     xr, z = _in_proj(params, x, ctx)                                  # (B,L,di)
     xr = constrain(xr, ("batch", None, "tp"), ctx)
-    xc = F.silu(_conv_train(params, xr, cfg.ssm_conv))
+    xc = F.silu(_conv_train(params, xr, cfg.ssm_conv, ctx))
 
     def chunk_step(xc_chunk, h0):
-        da, dbx, c = _ssm_inputs(params, xc_chunk, cfg)
+        da, dbx, c = _ssm_inputs(params, xc_chunk, cfg, ctx=ctx)
         return _on_shards(_chunk_train, ctx, da, dbx, c, h0)          # (B,di,st), (B,Q,di)
 
     q = min(cfg.ssm_chunk or SSM_CHUNK, l)
@@ -224,12 +229,12 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
                          f"positions for its conv tail, got {l}")
     xr, z = _in_proj(params, x, ctx)                                  # (B,L,di)
     xr = constrain(xr, ("batch", None, "tp"), ctx)
-    xc = F.silu(_conv_train(params, xr, k))
+    xc = F.silu(_conv_train(params, xr, k, ctx))
 
     q = min(SSM_CHUNK, l)
     n_chunks = -(-l // q)
     pad = n_chunks * q - l
-    xcp = F.pad(xc, (0, 0, 0, pad)) if pad else xc
+    xcp = shd.pad(xc, (0, 0, 0, pad), ctx) if pad else xc
     # padded steps get dt = 0 (state pass-through), so h_last is h at t = l - 1
     valid = (torch.arange(n_chunks * q, device=x.device) < l).float()
     h = shd.zeros((bsz, cfg.d_inner, cfg.ssm_state), ("batch", "tp", None), ctx,
@@ -239,7 +244,7 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
         # no name holds da and dbx: the chunk frees them as it goes
         h, y = _on_shards(_chunk_prefill, ctx,
                           *_ssm_inputs(params, xcp[:, i * q:(i + 1) * q], cfg,
-                                       mask=valid[i * q:(i + 1) * q]), h)
+                                       mask=valid[i * q:(i + 1) * q], ctx=ctx), h)
         ys.append(y)                                                  # (B,Q,di)
     y = torch.cat(ys, dim=1)[:, :l]
     out = _gate_out(params, y, xc, z, x.dtype)

@@ -158,7 +158,7 @@ def encoder_forward(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     def enc_layer(lp, h):
         h = h + attn.attention_train(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
                                      cfg, ctx, causal=False)
-        h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), ctx)
         return constrain(h, ("batch", None, None), ctx)
 
     h = _scan_stack(enc_layer, params["enc_layers"], frames, cfg, with_aux=False, ctx=ctx)
@@ -171,7 +171,7 @@ def encoder_forward(params: dict, frames: torch.Tensor, cfg: ArchConfig,
 
 def _apply_dense_layer(lp, x, cfg, ctx):
     x = x + attn.attention_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, ctx)
-    x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx)
     return constrain(x, ("batch", None, None), ctx)
 
 
@@ -213,7 +213,7 @@ def _apply_hybrid_block(bp, x, cfg, ctx):
             moe_i += 1
         else:
             sub = tree_map(lambda a, i=mlp_i: a[i], bp["mlp"])
-            x = x + mlp(sub["mlp"], rmsnorm(x, sub["ln"], cfg.norm_eps))
+            x = x + mlp(sub["mlp"], rmsnorm(x, sub["ln"], cfg.norm_eps), ctx)
             mlp_i += 1
         x = constrain(x, ("batch", None, None), ctx)
     return x, aux_total
@@ -223,7 +223,7 @@ def _apply_dec_layer(lp, x, enc_out, cfg, ctx):
     x = x + attn.attention_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, ctx)
     x = x + attn.attention_cross(lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
                                  enc_out, cfg, ctx)
-    x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx)
     return constrain(x, ("batch", None, None), ctx)
 
 

@@ -256,7 +256,7 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx=None
     else:
         raise ValueError(cfg.moe_dispatch)
     if "shared" in params:
-        out = out + mlp(params["shared"], x_flat)
+        out = out + mlp(params["shared"], x_flat, ctx)
     return _untokens(out, b, l, ctx), aux
 
 

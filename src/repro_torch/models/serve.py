@@ -121,8 +121,8 @@ def _pad_cache(k: torch.Tensor, v: torch.Tensor, seq: int, ctx=None):
         why = "padding moves a sharded sequence's blocks (a no-op unless kv_seq shards)"
         k = shd.reshard(k, ("batch", None, None, "kv_tp"), ctx, why)
         v = shd.reshard(v, ("batch", None, None, "kv_tp"), ctx, why)
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k = shd.pad(k, (0, 0, 0, 0, 0, pad), ctx)
+        v = shd.pad(v, (0, 0, 0, 0, 0, pad), ctx)
     k = constrain(k, ("batch", "kv_seq", None, "kv_tp"), ctx)
     v = constrain(v, ("batch", "kv_seq", None, "kv_tp"), ctx)
     return k, v
@@ -138,7 +138,7 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig, ctx, ln: str = "ln2") -> to
     """The layer's FFN half: a dense MLP or the MoE layer, with its residual."""
     hn = rmsnorm(h, lp[ln], cfg.norm_eps)
     if "mlp" in lp:
-        return h + mlp(lp["mlp"], hn)
+        return h + mlp(lp["mlp"], hn, ctx)
     out, _ = moe_mod.moe_layer(lp["moe"], hn, cfg, ctx)
     return h + out
 
@@ -262,9 +262,9 @@ def _prefill(params, batch, cfg, cache_seq, ctx):
             x = x + attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ks, vs)
             x = x + attn.attention_cross(lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
                                          enc_out, cfg, ctx)
-            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx)
             x = constrain(x, ("batch", None, None), ctx)
-            ck, cv = attn.cross_cache_from_encoder(lp["cross"], enc_out)
+            ck, cv = attn.cross_cache_from_encoder(lp["cross"], enc_out, ctx)
             cks.append(ck.to(dtype))
             cvs.append(cv.to(dtype))
         caches = {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -319,6 +319,6 @@ def _decode_step(params, tokens, caches, pos, cfg, ctx):
             x = x + attn.attention_cross_decode(
                 lp["cross"], rmsnorm(x, lp["ln_x"], cfg.norm_eps),
                 (caches["ck"][i], caches["cv"][i]), cfg, ctx)
-            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx)
             x = constrain(x, ("batch", None, None), ctx)
     return constrain(_logits(params, x[:, 0], cfg), ("batch", "tp"), ctx), caches

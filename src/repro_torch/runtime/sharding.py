@@ -252,6 +252,20 @@ def local(fn: Callable, ctx: ShardCtx | None, in_placements: tuple,
                      device_mesh=ctx.mesh, redistribute_inputs=False)
 
 
+def pad(x: torch.Tensor, widths: tuple[int, ...], ctx: ShardCtx | None) -> torch.Tensor:
+    """``F.pad(x, widths)`` with zeros, on each rank's shards when ``x`` is
+    a DTensor (torch 2.11's sharding rule for ``constant_pad_nd`` on a mesh
+    of two or more dims plans a redistribution it cannot carry out).  No
+    padded dim may be sharded; a ``Partial`` sum pads with its zeros."""
+    if not (on_mesh(ctx) and isinstance(x, DTensor)):
+        return torch.nn.functional.pad(x, widths)
+    padded = {x.ndim - 1 - i // 2 for i, w in enumerate(widths) if w}
+    pl = tuple(x.placements)
+    if any(isinstance(p, Shard) and p.dim in padded for p in pl):
+        raise ValueError(f"pad: dims {sorted(padded)} of a tensor placed {pl} are sharded")
+    return local(lambda t: torch.nn.functional.pad(t, widths), ctx, (pl,), (pl,))(x)
+
+
 def partial_where(placements_: tuple, users: tuple, dim: int) -> tuple:
     """``placements_`` with ``Partial()`` on each mesh dim where ``users``
     (another input's placements) shards tensor dim ``dim``: the gradient
@@ -267,6 +281,12 @@ def shard_block(placements_: tuple, dim: int, ctx: ShardCtx) -> tuple[int, list[
     for a in axes:
         block = block * ctx.axis_sizes[a] + ctx.mesh.get_local_rank(a)
     return block, axes
+
+
+def shard_count(placements_: tuple, dim: int, ctx: ShardCtx) -> int:
+    """How many blocks ``placements_`` split tensor dim ``dim`` into."""
+    return math.prod(ctx.axis_sizes[n] for n, p in zip(ctx.axis_names, placements_)
+                     if p == Shard(dim))
 
 
 class _SumOverRanks(torch.autograd.Function):

@@ -137,7 +137,8 @@ def spatial_block_len(t_pad: int, cfg: HDCConfig) -> int:
 
 
 def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
-                        codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
+                        codes: torch.Tensor, cfg: HDCConfig,
+                        chan_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Code-domain gather + bundle: (S, T, channels) uint8 codes -> (S, T, W)
     per-cycle packed spatial HVs, without the (S, T, C, W) bound expansion.
 
@@ -148,7 +149,12 @@ def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
       a 32-multiple so the counts take the bit-plane adder, then threshold
       or majority pack.
 
-    Out-of-alphabet codes clamp within their channel's rows."""
+    Out-of-alphabet codes clamp within their channel's rows.  ``chan_mask``
+    (S, channels), 1 = live, drops the quarantined channels from the bundle
+    (the adder tree's threshold renormalised to the live count, dense's
+    majority taken over it), bit-exact with the same encode on the
+    physically reduced channel set (the fleet's stage probe; its step masks
+    inside the fleet kernel)."""
     s, t, c = codes.shape
     p, _, k, w = tables.shape
     if t == 0:
@@ -160,6 +166,9 @@ def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
     if cfg.variant == "sparse_compim" and not cfg.spatial_thinning:
         ob = owner.to(torch.int64)[:, None] * (c * k)             # (S, 1)
         lvl = [flat[ob + ch * k + ci[:, :, ch]] for ch in range(c)]  # C x (S, T, W)
+        if chan_mask is not None:  # OR identity: masked terms vanish
+            m = chan_mask.to(torch.int32)
+            lvl = [r * m[:, ch, None, None] for ch, r in enumerate(lvl)]
         while len(lvl) > 1:
             nxt = [a | b for a, b in zip(lvl[0::2], lvl[1::2])]
             if len(lvl) % 2:
@@ -171,17 +180,24 @@ def owner_spatial_codes(tables: torch.Tensor, owner: torch.Tensor,
     ob = owner.to(torch.int64)[None, :, None] * (c * k)           # (1, S, 1)
     cbase = (torch.arange(c, device=codes.device) * k)[:, None, None]  # (C, 1, 1)
     c32 = -(-c // 32) * 32
+    n_maj, thr = cfg.channels, cfg.spatial_threshold
+    if chan_mask is not None:
+        cm = chan_mask.to(torch.int32).T[:, :, None, None]       # (C, S, 1, 1)
+        live = chan_mask.to(torch.int32).sum(dim=1, dtype=torch.int32)[:, None, None]
+        n_maj, thr = live, effective_spatial_threshold(live, cfg)
     out = []
     for t0 in range(0, t, block):
         idx = ob + cbase + ci[:, t0:t0 + block].permute(2, 0, 1)  # (C, S, block)
         bound = flat[idx]                                       # (C, S, block, W)
+        if chan_mask is not None:  # zeroed rows count nothing below
+            bound = bound * cm
         if c32 != c:  # zero rows count nothing; keeps the bit-plane route
             bound = torch.cat([bound, bound.new_zeros((c32 - c, *bound.shape[1:]))])
         counts = hv.unpacked_counts(bound, axis=0, dim=cfg.dim)
         if cfg.variant == "dense":
-            out.append(hv.majority_pack(counts, cfg.channels, cfg.dim))
+            out.append(hv.majority_pack(counts, n_maj, cfg.dim))
         else:
-            out.append(hv.threshold_pack(counts, cfg.spatial_threshold))
+            out.append(hv.threshold_pack(counts, thr))
     return torch.cat(out, dim=1)
 
 

@@ -110,7 +110,8 @@ restores onto any mesh.  ``warmup`` warns and captures nothing under a mesh
 (the reference's mesh fleets skip their AOT path), and ``save_aot`` raises.
 
 Decisions are bit-exact with the reference fleet, warmed, tiled over
-several devices or on a mesh.  Not ported: stage probes.
+several devices or on a mesh.  ``stage_probes`` breaks a CPU fleet's round
+into the reference's four plain stages; a fleet on the card refuses.
 """
 
 from __future__ import annotations
@@ -1060,6 +1061,82 @@ class StreamingFleet:
         """Feed one (t_i, channels) uint8 chunk per session (lengths may
         differ, 0 included); returns each session's completed decisions."""
         return self.collect_decisions(self.push_raw(chunks))
+
+
+    # -- instrumentation ------------------------------------------------------
+
+    def stage_probes(self, batch) -> dict[str, tuple]:
+        """Per-stage probes of one steady push round (the reference's, for a
+        fleet benchmark's breakdown rows): ``batch`` is one (S, t, channels)
+        uint8 code round (0 < t <= the largest bucket).  Returns ``{stage:
+        (fn, scale)}``: ``fn()`` runs that stage once on tile 0 and returns
+        its output (``ingest``: the host side of one round over every
+        tile's staging buffers, returning None); ``scale`` is the tile
+        count (1 for ``ingest``).  Each fn has run once before it is
+        returned.  The stages are the plain datapath's: ``spatial``
+        (``dispatch.owner_spatial_codes``, masked on a masked fleet),
+        ``temporal`` (``fleet_counts``' plain bit-plane path) and ``am``
+        (threshold or majority pack, then ``owner_am_scores`` against a
+        clone of tile 0's class rows).  A fleet on the card raises: its
+        kernel fuses gather, bundle, transpose and counters in one launch,
+        so these stage times would describe a datapath it never runs (the
+        card's stage shares come from the profiler)."""
+        if any(d.type == "cuda" for d in self._tile_devs):
+            raise ValueError(
+                "stage_probes breaks the step into the plain stages; this "
+                "fleet runs the fused CUDA kernel on the card: probe a CPU "
+                "fleet, or read the stage shares from the profiler")
+        cfg = self._cfg
+        batch = np.asarray(batch, np.uint8)
+        t = batch.shape[1]
+        if not 0 < t <= self._buckets[-1]:
+            raise ValueError(f"stage_probes needs one round, 0 < t <= {self._buckets[-1]}")
+        rows, dev = self._rows_t[0], self._tile_devs[0]
+        tile_s = rows.stop - rows.start
+        tables, owner = self._tables_dev[dev], self._param_owner_t[0]
+        thresholds = self._thresholds_t[0]
+        class_rows = self._state_t[0].class_rows.clone()
+        tile_batch = np.zeros((tile_s, t, cfg.channels), np.uint8)
+        hi = min(rows.stop, self._n)
+        if hi > rows.start:
+            tile_batch[:hi - rows.start] = batch[rows.start:hi]
+        chunk = self._put(tile_batch, device=dev)
+        filled = self._put(np.zeros(tile_s, np.int32), device=dev)
+        lengths = self._put(np.full(tile_s, t, np.int32), device=dev)
+        mask = self._cmask_t[0] if self._masked else None
+
+        def spatial():
+            return dispatch.owner_spatial_codes(tables, owner, chunk, cfg, mask)
+
+        words = spatial()
+
+        def temporal():
+            return fleet_ops.fleet_counts(words, filled, lengths, cfg)
+
+        seg = temporal()
+
+        def am():
+            if cfg.variant == "dense":
+                frames = hv.majority_pack(seg[:, :-1], cfg.window, cfg.dim)
+            else:
+                frames = hv.threshold_pack(seg[:, :-1], thresholds[:, None, None])
+            return dispatch.owner_am_scores(frames, class_rows[:, None], cfg)
+
+        am()
+        t_bucket = self._bucket_for(t)
+
+        def ingest():  # the host side of one round: every tile's staging writes
+            for k, r in enumerate(self._rows_t):
+                stage, lens = self._stage_buf(k, 0, t_bucket)
+                top = min(r.stop, self._n)
+                if top > r.start:
+                    stage.numpy()[:top - r.start, :t] = batch[r.start:top]
+                lens.numpy()[:] = t
+
+        ingest()
+        n_tiles = self.n_tiles
+        return {"ingest": (ingest, 1), "spatial": (spatial, n_tiles),
+                "temporal": (temporal, n_tiles), "am": (am, n_tiles)}
 
     # -- online adaptation ----------------------------------------------------
 

@@ -218,6 +218,21 @@ def j_model_spec(jc):
     return j_model.model_spec(jc)
 
 
+def run_each(tmp_path, runs: list, timeout: float = 300) -> None:
+    """Write each case's reference (``runs``: (``write_case`` keywords with
+    ``arch``, mesh)), then run each case on its own mesh, the meshes'
+    groups at once."""
+    work = str(tmp_path / "data")
+    os.makedirs(work, exist_ok=True)
+    specs = []
+    for i, (case, shape) in enumerate(runs):
+        entry = write_case(work, meshes=[shape], **case)
+        specs.append(("lm", {"mesh": list(shape), "axes": list(AXES[len(shape)]),
+                             "cases": [entry], "data": work},
+                      str(tmp_path / f"group{i}")))
+    mesh_worker.spawn_all(specs, timeout=timeout)
+
+
 def run(tmp_path, cases: list, meshes: list, timeout: float = 300) -> None:
     """Write each case's reference (``cases``: ``write_case`` keywords with
     ``arch``), then run them all on each mesh, one group of ranks a mesh,

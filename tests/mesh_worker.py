@@ -457,6 +457,27 @@ def case_moe_local_index(spec: dict, mesh, work: str) -> None:
     np.testing.assert_allclose(_full(aux), a["aux"], rtol=2e-4)
 
 
+def case_dryrun(spec: dict, mesh, work: str) -> None:
+    """The dry-run's cells traced on this real mesh with real tensors
+    (``launch/dryrun.py::trace_cell(real=True)``) under the op counter;
+    rank 0 writes the counts to ``work/dryrun.json`` for the parent to hold
+    against the same cells traced on a fake world of as many ranks."""
+    from repro_torch.configs import registry
+    from repro_torch.data import lm as lmdata
+    from repro_torch.launch import dryrun
+
+    cfg = registry.get_config(spec["arch"]).reduced(**spec["overrides"])
+    out = {}
+    for kind in spec["kinds"]:
+        shape = lmdata.ShapeSpec(kind, spec["seq"], spec["batch"], kind)
+        r = dryrun.trace_cell(cfg, shape, mesh, device="cpu", real=True,
+                              seq_sharded_kv=False)
+        out[kind] = {k: r[k] for k in ("cost", "collectives", "memory")}
+    if dist.get_rank() == 0:
+        with open(os.path.join(work, "dryrun.json"), "w") as f:
+            json.dump(out, f)
+
+
 def case_lm(spec: dict, mesh, work: str) -> None:
     """Each family of ``spec["cases"]`` on this mesh against the unsharded
     reference: training (loss, gradients, two steps) and serving (prefill,
@@ -476,7 +497,7 @@ def case_lm(spec: dict, mesh, work: str) -> None:
 
 
 CASES = {"fleet": case_fleet, "restore": case_restore, "ckpt": case_ckpt, "lm": case_lm,
-         "moe_local_index": case_moe_local_index, "scan": case_scan}
+         "moe_local_index": case_moe_local_index, "scan": case_scan, "dryrun": case_dryrun}
 
 
 def spawn(case: str, spec: dict, group: str, timeout: float = 180) -> None:

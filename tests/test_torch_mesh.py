@@ -254,3 +254,31 @@ def test_mesh_cli_two_ranks(tmp_path):
                               "--device", "cpu"], env=env, capture_output=True, text=True,
                              timeout=120)
         assert out.returncode != 0 and msg in out.stderr, out.stderr
+
+
+def test_pad_runs_on_each_ranks_shards():
+    """``shd.pad`` pads unsharded dims on each rank's shards (placements
+    kept, a fake (2, 2) world), equals ``F.pad`` without a mesh, and
+    refuses to pad a sharded dim."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    x = torch.arange(24.0).reshape(2, 3, 4)
+    assert torch.equal(shd.pad(x, (0, 0, 2, 0), None),
+                       torch.nn.functional.pad(x, (0, 0, 2, 0)))
+    mesh_mod.fake_world(4)
+    try:
+        mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), device="cpu")
+        ctx = shd.make_ctx(mesh)
+        with FakeTensorMode():
+            xd = distribute_tensor(torch.empty(4, 6, 8), mesh, [Shard(0), Shard(2)],
+                                   src_data_rank=None)
+            y = shd.pad(xd, (0, 0, 3, 0), ctx)
+            assert tuple(y.placements) == (Shard(0), Shard(2))
+            assert tuple(y.shape) == (4, 9, 8) and tuple(y.to_local().shape) == (2, 9, 4)
+            with pytest.raises(ValueError, match="sharded"):
+                shd.pad(xd, (1, 0), ctx)
+    finally:
+        dist.destroy_process_group()
