@@ -203,24 +203,41 @@ Phases (one line each, any failure exits non-zero):
    bound formula, and the child's kernel launches, counted over its whole
    run, are 0; (d) (checked beside phase 5, while phase 4's fleet
    lives) ``StreamingFleet.stage_probes`` raises on that card fleet and
-   runs on a 64-session CPU fleet.
+   runs on a 64-session CPU fleet;
+17. the program audit on the card (run right after phase 11, while its
+   warmed fleets live; ``analysis/audit.py``): (a) ``run_audit()`` on
+   ``cuda:0`` with capture, its entries the reference's four (the step
+   and adapt at 2 sessions and bucket 32, the engine at batches 1 and 2),
+   all ok and replayed from their graphs, the step's state in place 9 of
+   9; (b) every program phase 11's warmed fleets captured at the paper's
+   geometry (``sparse_compim``, ``dense``, the faulted fleet with its draw,
+   the masked elastic fleet's tiles), each body audited and its own graph
+   replayed, all ok, each entry's dtype histogram and seconds logged;
+   (c) a leaf rebound instead of copied, a ``.item()``, an unpinned int32
+   ``sum`` and an int32 buffer plus an ``arange``, each caught; the
+   phase's seconds beside the card.
 
 Each path's offline chain (calibration, training, inference) runs under
 the profiler, which reports its device-busy time by kernel; on each path
 one patient's ``scores(encode_frames(x))`` (the standalone AM kernel) must
-equal its fused ``infer(x)``.  After each path, one ``infer(codes[1:])``
-call is profiled (it must run exactly one device kernel) and timed against
-the old chain.  Each path's kernel launches are counted from zero just
+equal its fused ``infer(x)``.  After each path, 50 ``infer(codes[1:])``
+calls must run exactly one device kernel each: the wrappers' ``launches``
+counters read 50 launches of one kernel, each with its AM epilogue, and
+one profiler trace of the 50 calls between two bracket fills holds no
+device event outside the kernel library and at most 50 of its kernels (a
+trace that drops events can only lower these counts; the events lost are
+logged); one call is timed against the old chain.  Each path's kernel launches are counted from zero just
 before it and read just after.
 The line before the last is a JSON object with every kernel's launches
-over the paths, times and bound, and phase 15's and 16's numbers
-(``lm_mesh``, ``dryrun``); the last line is the device summary.
+over the paths, times and bound, and phase 15's, 16's and 17's numbers
+(``lm_mesh``, ``dryrun``, ``audit``); the last line is the device summary.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -305,6 +322,7 @@ PATH_KERNELS = {
     "elastic": ("hdc_fleet",),
     "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
     "deploy": ("hdc_fleet",),
+    "audit": ("hdc_fleet",),  # phase 17: bodies run eagerly, warm-ups, graph replays
     "mesh": ("hdc_fleet",),
     "lm_mesh": (),          # the LM path launches none of the five kernels
     "dryrun": (),           # phase 16's child traces on fake tensors: no launch
@@ -1114,63 +1132,100 @@ def _old_infer(pipe, codes):
     return _old_chain(encode, frame_view(codes, cfg.window), pipe.class_hvs, mode, cfg.dim)
 
 
+PROBE_CALLS = 50         # infer calls the kernel count of one call is read over
+
+
+def _probe_trace(fn, bracket) -> list[str]:
+    """The device events (kernels, copies, fills) of ``PROBE_CALLS`` calls
+    of ``fn`` in one profiler trace, between two bracket fills: one
+    warm-up step under the profiler, then the counted step (the tracer may
+    miss a short call's kernels in the step that starts it); the step's
+    own device-side annotation is not a kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen: list[str] = []
+
+    def read(p):
+        seen.extend(e.name for e in p.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep"))
+
+    with torch.profiler.profile(
+            activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=read) as prof:
+        for _ in range(2):
+            bracket.fill_(1)
+            for _ in range(PROBE_CALLS):
+                fn()
+            bracket.fill_(2)
+            torch.cuda.synchronize()
+            prof.step()
+    return seen
+
+
 def infer_probe(tag: str, res: dict) -> dict:
     """One patient's ``infer(codes[1:])``: the device kernels one call runs
-    (profiler; exactly one, the encoder with its AM epilogue), and its time
-    as the host issues the calls and on the device against the old
-    five-launch chain on the same inputs, timed in turns."""
+    (exactly one, the encoder with its AM epilogue), and its time as the
+    host queues the calls and on the device against the old five-launch
+    chain on the same inputs, timed in turns.
+
+    The count rests on two readings of ``PROBE_CALLS`` calls, neither on
+    one short trace: the wrappers' ``launches`` counters (exactly one
+    launch a call, all of one kernel, each with its AM epilogue), and one
+    profiler trace of the same calls between two bracket fills, in which
+    no device event but the library's kernels and the two brackets may
+    appear and the library's kernels number at most one a call.  A trace
+    that drops events can only lower those counts; a stray kernel raises
+    them even then."""
     pid, codes, _, _ = res["records"][0]
     pipe = res["bank"][f"patient{pid}"]
     x = codes[1:]
     fused, old = (lambda: pipe.infer(x)), (lambda: _old_infer(pipe, x))
     expect(all(torch.equal(a, b) for a, b in zip(fused(), old())),
            f"{tag}: the fused infer differs from the old chain")
+    wrappers = kernel_wrappers()
+    epilogue = "am_epilogue_dense" if pipe.cfg.variant == "dense" else "am_epilogue_sparse"
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    # the counted call is bracketed by two fill kernels; a trace that lacks
-    # either bracket lost events (the tracer has dropped the start of a
-    # window) and is taken again, up to five times, instead of being read
+    before = {k: w.launches for k, w in wrappers.items()}
+    for _ in range(PROBE_CALLS):
+        fused()
+    torch.cuda.synchronize()
+    delta = {k: w.launches - before[k] for k, w in wrappers.items()}
+    library = {k: delta[k] for k in KERNELS}
+    launched = [k for k, n in library.items() if n]
+    expect(sum(library.values()) == PROBE_CALLS and len(launched) == 1
+           and delta[epilogue] == PROBE_CALLS,
+           f"{tag}: {PROBE_CALLS} infer calls counted {delta} launches, not "
+           f"{PROBE_CALLS} of one kernel with its AM epilogue")
     bracket = torch.zeros(1, dtype=torch.int32, device=x.device)
-    for attempt in range(5):
-        counts, fills = {}, []
-        for name, fn in (("infer", fused), ("old chain", old)):
-            # one warm-up step under the profiler, then the counted call (the
-            # tracer may miss a short call's kernels in the step that starts
-            # it); the step's own device-side annotation is not a kernel
-            seen = counts[name] = []
-
-            def read(p, seen=seen):
-                seen.extend(e.name for e in p.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA
-                            and not e.name.startswith("ProfilerStep"))
-                fills.append(sum("FillFunctor" in n for n in seen))
-
-            with torch.profiler.profile(
-                    activities=acts,
-                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-                    on_trace_ready=read) as prof:
-                for _ in range(2):
-                    bracket.fill_(1)
-                    fn()
-                    bracket.fill_(2)
-                    torch.cuda.synchronize()
-                    prof.step()
-        if fills == [2, 2]:
-            break
-        log(f"[{tag}] trace {attempt + 1} of one infer call lost events (brackets seen "
-            f"{fills}, of 2 each); taken again")
-    expect(fills == [2, 2], f"{tag}: no trace of five held both brackets and nothing "
-           f"else of their kind (fill kernels seen {fills}, of 2 each)")
-    # every kernel of the trace is counted, less the two brackets
-    n_infer, n_old = len(counts["infer"]) - 2, len(counts["old chain"]) - 2
-    log(f"[{tag}] device kernels in one infer call at codes{tuple(x.shape)}, less the "
-        f"two brackets: {n_infer} ({'; '.join(k[:50] for k in counts['infer'])}); "
-        f"the old chain: {n_old} ({'; '.join(k[:40] for k in counts['old chain'])})")
-    expect(n_infer == 1, f"{tag}: one infer call ran {n_infer} device kernels, not one")
+    lib_names = tuple(f"{k}_kernel" for k in KERNELS)
+    traces = {}
+    for name, fn in (("infer", fused), ("old chain", old)):
+        seen = _probe_trace(fn, bracket)
+        fills = [n for n in seen if "FillFunctor" in n]
+        lib = [n for n in seen if any(k in n for k in lib_names)]
+        other = [n for n in seen if n not in fills and n not in lib]
+        traces[name] = {"events": len(seen), "fills": len(fills), "library": len(lib),
+                        "other": len(other), "names": sorted(set(seen))}
+    t = traces["infer"]
+    lost = (PROBE_CALLS - t["library"]) + (2 - t["fills"])
+    old_t = traces["old chain"]
+    n_old = (old_t["events"] - min(old_t["fills"], 2)) / PROBE_CALLS
+    log(f"[{tag}] {PROBE_CALLS} infer calls at codes{tuple(x.shape)}: {library[launched[0]]} "
+        f"{launched[0]} launches by the counters ({delta[epilogue]} with the AM epilogue); "
+        f"one trace: {t['library']} library kernels, {t['fills']} of 2 bracket fills, "
+        f"{t['other']} other device events ({'; '.join(k[:50] for k in t['names'])}); "
+        f"events lost {lost}; the old chain: {n_old:.2f} device events a call "
+        f"({old_t['events']} in its trace: {'; '.join(k[:40] for k in old_t['names'])})")
+    expect(t["other"] == 0 and t["fills"] <= 2 and t["library"] <= PROBE_CALLS,
+           f"{tag}: the trace of {PROBE_CALLS} infer calls holds {t['other']} device "
+           f"events not of the kernel library, {t['fills']} fills (2 brackets) and "
+           f"{t['library']} library kernels (at most {PROBE_CALLS}): {t['names']}")
+    n_infer = sum(library.values()) // PROBE_CALLS
     times = {}
     for name, fn in (("old", old), ("fused", fused), ("fused", fused), ("old", old)):
         times.setdefault(name, []).append((cuda_ms(fn, 50), cuda_ms(fn, 50, queued=True)))
     out = {"kernels_per_call": n_infer, "old_kernels_per_call": n_old,
+           "trace_events_lost": lost, "trace_library_kernels": t["library"],
            "ms": [t[0] for t in times["fused"]], "device_ms": [t[1] for t in times["fused"]],
            "old_ms": [t[0] for t in times["old"]], "old_device_ms": [t[1] for t in times["old"]]}
     log(f"[{tag}] infer(codes{tuple(x.shape)}): fused {', '.join(f'{v:.4f}' for v in out['ms'])} "
@@ -2404,7 +2459,8 @@ def deploy_fixed(tag: str, res: dict, tmp: str) -> dict:
     expect(_same_state(warm.state, eager.state), f"{tag}: timed rounds left the fleets apart")
     expect(prof_graph["fleet_kernels_in_graph"] >= 1,
            f"{tag}: the profiler shows no fleet kernel under a graph launch: {prof_graph}")
-    out = {"save_ms": save_ms, "warmup_ms": warm_ms, "warmup": stats, "capture_ms": caps,
+    out = {"warmed": warm,   # phase 17 audits its captured programs
+           "save_ms": save_ms, "warmup_ms": warm_ms, "warmup": stats, "capture_ms": caps,
            "compared": compared, "graph_round_ms": graph_ms, "eager_round_ms": eager_ms,
            "graph_median_ms": float(np.median(graph_ms)),
            "eager_median_ms": float(np.median(eager_ms)),
@@ -2522,7 +2578,7 @@ def deploy_elastic(tag: str, bank: dict, records) -> dict:
     graph_ms, eager_ms = _turns(push_all(warm), push_all(eager))
     prof_graph = _graph_round_profile(lambda: push_all(warm)(0))
     prof_eager = _graph_round_profile(lambda: push_all(eager)(0))
-    out = {"warmup": stats, "warmup_ms": warm_ms, "spill_captures": spill_caps,
+    out = {"warmed": warm, "warmup": stats, "warmup_ms": warm_ms, "spill_captures": spill_caps,
            "compared": compared[0], "live": live, "graph_round_ms": graph_ms,
            "eager_round_ms": eager_ms, "graph_median_ms": float(np.median(graph_ms)),
            "eager_median_ms": float(np.median(eager_ms)),
@@ -2557,7 +2613,7 @@ def deploy_variants(tag: str, sparse: dict, dense: dict) -> dict:
     n = _expect_same_runs(f"{tag}: faulted round", runs[0], runs[1])
     expect(np.array_equal(warm.ecc_stats, eager.ecc_stats) and warm.ecc_stats.any(),
            f"{tag}: faulted ECC counts differ or are all zero")
-    out["faulted"] = {"warmup": stats, "decisions": n,
+    out["faulted"] = {"warmed": warm, "warmup": stats, "decisions": n,
                       "ecc_words": warm.ecc_stats.sum(0).tolist()}
     log(f"[{tag}] faulted fleet (BER 1e-2, every target, SECDED) warmed {stats}: the "
         f"replayed faulted round equals the eager one with the same seed ({n} decisions, "
@@ -2570,7 +2626,7 @@ def deploy_variants(tag: str, sparse: dict, dense: dict) -> dict:
     script = _script(dstreams, 2, dense["cfg"].n_classes, SEED + 15)
     n = _expect_same_runs(f"{tag}: dense fleet", _run_script(warm, script),
                           _run_script(eager, script))
-    out["dense"] = {"warmup": stats, "decisions": n}
+    out["dense"] = {"warmed": warm, "warmup": stats, "decisions": n}
     log(f"[{tag}] dense fleet warmed {stats}: 2 steady rounds, a ragged round, a 768-cycle "
         f"push and an adapt equal to an eager dense fleet ({n} decisions)")
 
@@ -2794,6 +2850,134 @@ def deploy_phase(tag: str, sparse: dict, dense: dict, fit_bank: dict, records) -
         out["cli"] = deploy_cli(tag, tmp)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[{tag}] phase 11 took {out['phase_s']:.1f} s")
+    # the warmed fleets whose captured programs phase 17 audits
+    out["fleets"] = {name: out[key].pop("warmed") for name, key in (
+        ("sparse_compim", "fixed"), ("dense", "dense"), ("elastic", "elastic"),
+        ("faulted", "faulted"))}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the program audit on the card
+# ---------------------------------------------------------------------------
+
+# the reference's audited program set (``hlo_audit._tiny_programs``):
+# (kind, sessions or batch, bucket)
+AUDIT_REFERENCE = {("step", 2, 32), ("adapt", 2, None), ("engine", 1, 32),
+                   ("engine", 2, 32)}
+
+
+def _audit_key(name: str) -> tuple:
+    """(kind, sessions or batch, bucket) of an audited entry's name."""
+    m = re.match(r"engine\.[^.]+\.b(\d+)\.t(\d+)\.", name)
+    if m:
+        return ("engine", int(m.group(1)), int(m.group(2)))
+    m = re.search(r"\.s(\d+)(?:\.t(\d+))?\.(step|adapt)\.", name)
+    expect(m is not None, f"audit: an entry name of no known form: {name}")
+    return (m.group(3), int(m.group(1)), None if m.group(2) is None else int(m.group(2)))
+
+
+def _audit_lines(tag: str, report) -> list:
+    """Log one line an entry (verdict, state in place, kernels, dtypes)."""
+    rows = []
+    for e in report.entries:
+        hist = " ".join(f"{t}x{n}" for t, n in sorted(e.dtype_histogram.items()))
+        exp = "-" if e.expected_in_place is None else e.expected_in_place
+        log(f"[{tag}] audit: [{'ok' if e.ok else 'FAIL'}] {e.name} in_place={e.in_place}/"
+            f"{exp} replayed={e.replayed} kernels={len(e.kernels)} explicit_i64="
+            f"{e.explicit_i64} {e.seconds * 1e3:.1f} ms dtypes: {hist}")
+        for p in e.problems:
+            log(f"[{tag}]   - {p}")
+        rows.append({"name": e.name, "ok": e.ok, "in_place": e.in_place,
+                     "expected_in_place": e.expected_in_place, "replayed": e.replayed,
+                     "seconds": e.seconds, "dtypes": dict(sorted(e.dtype_histogram.items()))})
+    return rows
+
+
+def _planted_programs(dev) -> dict:
+    """Four bodies the audit must refuse, on the card: a leaf rebound
+    instead of copied, a ``.item()``, an unpinned ``sum`` over int32, an
+    int32 buffer plus an ``arange``."""
+    from repro_torch.runtime import graphs
+
+    s = torch.arange(4096, dtype=torch.int32, device=dev)
+    x = torch.full((4096,), 3, dtype=torch.int32, device=dev)
+    m = torch.arange(4096, dtype=torch.int32, device=dev).reshape(64, 64)
+    held = {"s": s}
+
+    def rebinding():
+        held["s"] = held["s"] + x
+        return (held["s"],)
+
+    def prog(name, body, state=None, eager=None):
+        return graphs.Program(name=name, kind="step", body=body, state=state or {},
+                              inputs={"x": x, "m": m}, eager=eager)
+
+    return {
+        "rebound leaf": (prog("planted.rebound", rebinding, {"s": s},
+                              lambda leaves: {"s": leaves["s"] + x}), "in place"),
+        "item": (prog("planted.item", lambda: (m + int(m[0, 1].item()),)), "host escapes"),
+        "unpinned sum": (prog("planted.sum", lambda: (m.sum(1),)), "64-bit widening"),
+        "int32 + arange": (prog("planted.arange", lambda: (m + torch.arange(64, device=dev),)),
+                           "64-bit widening"),
+    }
+
+
+def audit_phase(tag: str, fleets: dict) -> dict:
+    """Phase 17: (a) ``run_audit()`` on the card with capture, against the
+    reference's four entries; (b) the programs phase 11's warmed fleets
+    captured, each body audited and its own graph replayed; (c) planted
+    faults, each caught."""
+    from repro_torch.analysis.audit import audit_entry, audit_fleet, run_audit
+    from repro_torch.serve.fleet import FleetState
+
+    t_phase = time.perf_counter()
+    n_leaves = len(dataclasses.fields(FleetState))
+    t0 = time.perf_counter()
+    tiny = run_audit()
+    tiny_s = time.perf_counter() - t0
+    rows = {"tiny": _audit_lines(tag, tiny)}
+    keys = {_audit_key(e.name): e for e in tiny.entries}
+    expect(set(keys) == AUDIT_REFERENCE and len(tiny.entries) == 4,
+           f"{tag}: run_audit's entries {sorted(keys, key=str)} are not the reference's "
+           f"{sorted(AUDIT_REFERENCE, key=str)}")
+    expect(tiny.ok and all(e.replayed for e in tiny.entries),
+           f"{tag}: run_audit on the card failed or did not replay: "
+           f"{[(e.name, e.problems) for e in tiny.entries if not e.ok or not e.replayed]}")
+    step = keys[("step", 2, 32)]
+    expect(step.in_place == step.expected_in_place == n_leaves,
+           f"{tag}: the step wrote {step.in_place}/{step.expected_in_place} leaves in place")
+    expect(all(e.kernels == ["hdc_fleet"] for k, e in keys.items() if k[0] != "adapt"),
+           f"{tag}: a step or dispatch did not launch the fleet kernel once")
+    log(f"[{tag}] (a) run_audit on the card with capture: {len(tiny.entries)} entries ok, "
+        f"each replayed, the step in place {step.in_place}/{n_leaves} ({tiny_s:.2f} s)")
+
+    fleet_s = {}
+    for name, fleet in fleets.items():
+        t0 = time.perf_counter()
+        rep = audit_fleet(fleet)
+        fleet_s[name] = time.perf_counter() - t0
+        rows[name] = _audit_lines(f"{tag}:{name}", rep)
+        expect(rep.ok and rep.entries and all(e.replayed for e in rep.entries),
+               f"{tag}: {name}: the warmed fleet's programs failed the audit or were not "
+               f"all captured: {[(e.name, e.problems) for e in rep.entries if not e.ok]}")
+        expect(all(e.in_place == n_leaves for e in rep.entries if e.kind == "step"),
+               f"{tag}: {name}: a step did not write its state in place")
+        log(f"[{tag}] (b) {name}: {len(rep.entries)} captured programs ok, each body "
+            f"audited and its graph replayed ({fleet_s[name]:.2f} s)")
+
+    caught = {}
+    for case, (prog, problem) in _planted_programs(torch.device("cuda", 0)).items():
+        got = audit_entry(prog, expected_in_place=len(prog.state) or None)
+        hits = [p for p in got.problems if problem in p]
+        expect(not got.ok and hits,
+               f"{tag}: the planted {case} was not caught as '{problem}': {got.problems}")
+        caught[case] = hits[0]
+    log(f"[{tag}] (c) planted faults caught on the card: "
+        + "; ".join(f"{k}: {v[:120]}" for k, v in caught.items()))
+    out = {"tiny_s": tiny_s, "fleet_s": fleet_s, "entries": rows, "planted": caught,
+           "phase_s": time.perf_counter() - t_phase, "card": CARD}
+    log(f"[{tag}] phase 17 took {out['phase_s']:.1f} s on {CARD}")
     return out
 
 
@@ -4807,6 +4991,11 @@ def main() -> int:
     deploy = deploy_phase("deploy", sparse, dense, fit_bank, records)
     launches.stop("deploy")
 
+    # phase 17: the program audit on the card, while phase 11's warmed fleets live
+    launches.start()
+    audit = audit_phase("audit", deploy.pop("fleets"))
+    launches.stop("audit")
+
     # phase 14: the fleet on several cards, on phase 4's bank and sessions
     # (run here, before phases 12 and 13 free the HDC tensors)
     launches.start()
@@ -4855,15 +5044,20 @@ def main() -> int:
              "compile_s", "warm_first_decision_s", "fresh_artifact", "fresh_build",
              "drain_s")},
          "hwmodel": deploy["hwmodel"]["ratios"], "phase_s": deploy["phase_s"]}))
+    log("[audit] " + json.dumps({k: v for k, v in audit.items() if k != "entries"}))
     log("[mesh] " + json.dumps(
         {"one_rank": mesh["one_rank"], "tiles": mesh["tiles"], "phase_s": mesh["phase_s"],
          "two_ranks": {k: v for k, v in mesh["two_ranks"].items() if k != "ranks"},
          "rank_launches": [r["fleet_launches"] for r in mesh["two_ranks"]["ranks"]],
          "card": CARD}))
 
+    audit_summary = {"tiny_s": audit["tiny_s"], "fleet_s": audit["fleet_s"],
+                     "phase_s": audit["phase_s"], "card": CARD,
+                     "entries": {k: len(v) for k, v in audit["entries"].items()}}
+
     # phase 12: the LM zoo's serving path, with the HDC phases' tensors freed
     del (patients, codes, records, sparse, res, dense, dense_bank, fit_bank, online,
-         elastic, rel, deploy, mesh)
+         elastic, rel, deploy, mesh, audit)
     import gc
 
     gc.collect()
@@ -4904,7 +5098,8 @@ def main() -> int:
     dry["card"] = CARD
     log("[dryrun] " + json.dumps(dry))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows, "lm_mesh": summary, "dryrun": dry}), flush=True)
+    print(json.dumps({"kernels": rows, "lm_mesh": summary, "dryrun": dry,
+                      "audit": audit_summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,8 +23,10 @@ RPR003    nondeterministic RNG source in library code (``src/``): the
 ========  =============================================================
 
 The reference's RPR001 (``jnp`` dtypes under X64), RPR004 (jit-static
-hashing) and RPR005 (Pallas kernel bodies), and its HLO audit, are about
-JAX and XLA and have no counterpart (``NOT_PORTED``).
+hashing) and RPR005 (Pallas kernel bodies) are about JAX and have no lint
+rule here (``NOT_PORTED``).  RPR001's hazard, a buffer widened to 64 bits,
+is checked at run time by the program audit (``analysis/audit.py``, the
+counterpart of the reference's HLO audit), rule (c).
 
 Waive an intentional finding with a trailing comment, or a comment on the
 line above it alone, that gives its reason::
@@ -50,13 +52,19 @@ RULES = {
     "RPR003": "nondeterministic RNG source in library code",
 }
 NOT_PORTED = {
-    "RPR001": "jnp dtype widths under JAX_ENABLE_X64: JAX only",
+    "RPR001": "jnp dtype widths under JAX_ENABLE_X64: its hazard, torch's hidden "
+              "int64 promotion, is checked at run time by the program audit's rule "
+              "(c) (python -m repro_torch.analysis --audit)",
     "RPR004": "unhashable jit-static arguments: JAX only",
     "RPR005": "Python side effects in Pallas kernel bodies: the port's kernels "
               "are CUDA C++",
 }
 
 _CAPTURE = "repro_torch.runtime.graphs.capture"
+# a warm-up program's body is what ``graphs.capture_program`` captures
+_PROGRAM = "repro_torch.runtime.graphs.Program"
+# ``plain(name, fn, ...)`` calls a kernel's plain version ``fn``
+_PLAIN = "repro_torch.kernels.common.plain"
 _HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _NP_SYNC_FUNCS = {"asarray", "array", "ascontiguousarray"}
 _SCALAR_CASTS = {"float", "int", "bool", "complex"}
@@ -229,13 +237,16 @@ def _fn_ref(node: ast.AST, mod: _Module, top: str) -> str | None:
 
 
 def _find_capture_roots(mod: _Module) -> None:
-    """The bodies handed to ``graphs.capture(name, body, ...)``."""
+    """The bodies handed to ``graphs.capture(name, body, ...)`` and to
+    ``graphs.Program(name, kind, body, ...)``."""
     for top in [q for q in mod.functions if ".<" not in q]:
         for node in ast.walk(mod.functions[top]):
-            if not (isinstance(node, ast.Call)
-                    and _dotted(node.func, mod.aliases) == _CAPTURE):
+            if not isinstance(node, ast.Call):
                 continue
-            body = node.args[1] if len(node.args) > 1 else next(
+            at = {_CAPTURE: 1, _PROGRAM: 2}.get(_dotted(node.func, mod.aliases))
+            if at is None:
+                continue
+            body = node.args[at] if len(node.args) > at else next(
                 (k.value for k in node.keywords if k.arg == "body"), None)
             if isinstance(body, ast.Lambda):
                 qname = f"{top}.<lambda:{body.lineno}>"
@@ -253,6 +264,8 @@ def _collect_calls(mod: _Module) -> None:
         for node in ast.walk(fn):
             if not isinstance(node, ast.Call):
                 continue
+            if _dotted(node.func, mod.aliases) == _PLAIN and len(node.args) > 1:
+                node = ast.Call(func=node.args[1], args=[], keywords=[])  # plain runs it
             local = _fn_ref(node.func, mod, top)
             if local is not None:
                 targets.add(("local", local))

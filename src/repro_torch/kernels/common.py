@@ -6,12 +6,44 @@ take raises, and so does a mix of devices.  Fake tensors (``FakeTensorMode``,
 the dry-run's trace) go the kernel's way on any device: a wrapper that can
 trace its launch records it (``runtime/op_cost.py``) and launches nothing; a
 mix of fake and real operands raises.
+
+A wrapper's plain branch runs through ``plain``: to the program audit
+(``analysis/audit.py``) a kernel's plain version is one operation, as the
+CUDA kernel is one launch, and its int64 carriers are its own.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+
+
+# the observer of the plain versions in this context (``observe_plain``):
+# called as observer(name, fn, args, kwargs) in place of fn(*args, **kwargs)
+_PLAIN_OBSERVER = contextvars.ContextVar("plain_observer", default=None)
+
+
+@contextlib.contextmanager
+def observe_plain(observer):
+    """Within this block, in this context only, every wrapper's plain
+    version runs through ``observer`` (the program audit's recorder)."""
+    token = _PLAIN_OBSERVER.set(observer)
+    try:
+        yield
+    finally:
+        _PLAIN_OBSERVER.reset(token)
+
+
+def plain(name: str, fn, *args, **kwargs):
+    """Kernel ``name``'s plain version ``fn`` on the wrapper's operands:
+    a call, or within ``observe_plain`` one operation its observer runs."""
+    observer = _PLAIN_OBSERVER.get()
+    if observer is None:
+        return fn(*args, **kwargs)
+    return observer(name, fn, args, kwargs)
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.classifier import HDCConfig, frame_view
 from repro_torch.core.im import DenseIMParams
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, stream_rows, use_plain
+from repro_torch.kernels.common import plain, require, stream_rows, use_plain
 from repro_torch.kernels.dense_hdc.ref import dense_encoder_plain, encode_score_plain
 
 
@@ -64,7 +64,8 @@ def dense_encoder(codes: torch.Tensor, item: torch.Tensor,
     """codes (..., window, C) uint8 frame-viewed LBP codes, item (C, K, W)
     int32, elec (C, W) int32 -> (..., W) int32 packed frame HVs."""
     if use_plain(codes, item, elec):
-        return dense_encoder_plain(codes, item, elec, window=window, dim=dim)
+        return plain("dense_hdc", dense_encoder_plain, codes, item, elec, window=window,
+                     dim=dim)
     *lead, win, c = codes.shape
     if win != window:
         raise ValueError(f"codes {tuple(codes.shape)} do not match window={window}")
@@ -112,8 +113,8 @@ def dense_encode_frames_fused(params: DenseIMParams, codes: torch.Tensor,
     """(B, T, C) uint8 codes -> (B, F, W) int32 frame HVs through the dense
     encoder kernel."""
     if use_plain(codes, params.item_packed, params.elec_packed):
-        return dense_encoder_plain(frame_view(codes, cfg.window), params.item_packed,
-                                   params.elec_packed, window=cfg.window, dim=cfg.dim)
+        return plain("dense_hdc", dense_encoder_plain, frame_view(codes, cfg.window),
+                     params.item_packed, params.elec_packed, window=cfg.window, dim=cfg.dim)
     return _stream_launch(params, codes, cfg, None)
 
 
@@ -125,9 +126,9 @@ def encode_score_fused(params: DenseIMParams, codes: torch.Tensor,
     dense encoder kernel with its AM epilogue, one launch; the frame HVs
     are not written."""
     if use_plain(codes, params.item_packed, params.elec_packed, class_hvs):
-        return encode_score_plain(frame_view(codes, cfg.window), params.item_packed,
-                                  params.elec_packed, class_hvs, window=cfg.window,
-                                  dim=cfg.dim)
+        return plain("dense_hdc", encode_score_plain, frame_view(codes, cfg.window),
+                     params.item_packed, params.elec_packed, class_hvs,
+                     window=cfg.window, dim=cfg.dim)
     return _stream_launch(params, codes, cfg, class_hvs)
 
 

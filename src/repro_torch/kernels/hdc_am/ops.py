@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, use_plain
+from repro_torch.kernels.common import plain, require, use_plain
 from repro_torch.kernels.hdc_am.ref import am_search_ref
 
 MODES = {"overlap": 0, "hamming": 1}
@@ -22,7 +22,7 @@ def am_search(queries: torch.Tensor, classes: torch.Tensor, *,
     w = queries.shape[-1]
     q2 = queries.reshape(-1, w)
     if use_plain(q2, classes):
-        out = am_search_ref(q2, classes, mode=mode, dim=dim)
+        out = plain("hdc_am", am_search_ref, q2, classes, mode=mode, dim=dim)
     else:
         q2 = q2.contiguous()
         c = classes.shape[0]

@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.classifier import HDCConfig, frame_view
 from repro_torch.core.im import IMParams
 from repro_torch.kernels import build
-from repro_torch.kernels.common import all_fake, require, stream_rows, use_plain
+from repro_torch.kernels.common import all_fake, plain, require, stream_rows, use_plain
 from repro_torch.kernels.hdc_encoder.ref import encode_score_plain, encoder_plain
 from repro_torch.runtime import op_cost
 
@@ -100,7 +100,7 @@ def encoder(codes: torch.Tensor, item_pos: torch.Tensor, elec: torch.Tensor,
               spatial_thinning=spatial_thinning,
               spatial_threshold=spatial_threshold)
     if use_plain(codes, item_pos, elec):
-        return encoder_plain(codes, item_pos, elec, **kw)
+        return plain("hdc_encoder", encoder_plain, codes, item_pos, elec, **kw)
     *lead, win, c = codes.shape
     if win != window:
         raise ValueError(f"codes {tuple(codes.shape)} do not match "
@@ -156,8 +156,8 @@ def encode_frames_fused(params: IMParams, codes: torch.Tensor,
     """(B, T, C) uint8 codes -> (B, F, W) int32 frame HVs through the
     encoder kernel, which gathers the CompIM positions itself."""
     if use_plain(codes, params.item_pos, params.elec_pos):
-        return encoder_plain(frame_view(codes, cfg.window), params.item_pos,
-                             params.elec_pos, **_cfg_kw(cfg))
+        return plain("hdc_encoder", encoder_plain, frame_view(codes, cfg.window),
+                     params.item_pos, params.elec_pos, **_cfg_kw(cfg))
     return _stream_launch(params, codes, cfg, None)
 
 
@@ -168,8 +168,8 @@ def encode_score_fused(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
     kernel with its AM epilogue, one launch; the frame HVs are not
     written."""
     if use_plain(codes, params.item_pos, params.elec_pos, class_hvs):
-        return encode_score_plain(frame_view(codes, cfg.window), params.item_pos,
-                                  params.elec_pos, class_hvs, **_cfg_kw(cfg))
+        return plain("hdc_encoder", encode_score_plain, frame_view(codes, cfg.window),
+                     params.item_pos, params.elec_pos, class_hvs, **_cfg_kw(cfg))
     return _stream_launch(params, codes, cfg, class_hvs)
 
 

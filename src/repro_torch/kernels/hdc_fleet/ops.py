@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.classifier import HDCConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, use_plain
+from repro_torch.kernels.common import plain, require, use_plain
 from repro_torch.kernels.hdc_fleet.ref import (emission_masks,
                                                fleet_counts_plain,
                                                fleet_counts_ref)
@@ -48,9 +48,8 @@ def fleet_counts_kernel(tables: torch.Tensor, owner: torch.Tensor,
         raise ValueError(f"unknown spatial mode {mode!r}")
     ops = [tables, owner, codes, tm] + ([] if chan_mask is None else [chan_mask])
     if use_plain(*ops):
-        return fleet_counts_plain(tables, owner, codes, tm, mode=mode,
-                                  dim=dim, threshold=threshold,
-                                  chan_mask=chan_mask)
+        return plain("hdc_fleet", fleet_counts_plain, tables, owner, codes, tm,
+                     mode=mode, dim=dim, threshold=threshold, chan_mask=chan_mask)
     p, c, k, w = tables.shape
     s, t32, _ = codes.shape
     if t32 % 32 or w * 32 != dim:

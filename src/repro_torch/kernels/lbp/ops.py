@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import require, use_plain
+from repro_torch.kernels.common import plain, require, use_plain
 from repro_torch.kernels.lbp.ref import lbp_ref
 
 
@@ -17,7 +17,7 @@ def lbp_codes(x: torch.Tensor, *, bits: int = 6) -> torch.Tensor:
     if not 1 <= bits <= 8:
         raise ValueError(f"bits={bits} must be in [1, 8]")
     if use_plain(x):
-        return lbp_ref(x, bits=bits)
+        return plain("lbp", lbp_ref, x, bits=bits)
     require(x, "x", torch.float32)
     b, t, c = x.shape
     out = torch.empty((b, t - bits, c), dtype=torch.uint8, device=x.device)

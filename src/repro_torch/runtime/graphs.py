@@ -14,6 +14,13 @@ allowed.  The wrappers count launches where they launch (``.launches``); a
 capture launches nothing, so the launches made while capturing are taken
 back and each ``replay`` adds them, so counts stay counts of kernels run.
 
+A ``Program`` is one warm-up entry as the fleet or engine makes it
+(``StreamingFleet._step_program``/``_adapt_program``,
+``ServingEngine._dispatch_program``): the body, its warm-up, the static
+state leaves the body writes in place and the static inputs copied in
+before a replay.  ``capture`` records it; the audit
+(``analysis/audit.py``) runs the same object, so both read one program.
+
 ``CAPTURE_LOG`` and ``EAGER_LOG`` list, for ``analysis/guards.py``, every
 capture and every step shape a fleet or engine first ran eagerly (the
 reference's ``_shapes_seen``): the port's counterparts of compilations.
@@ -22,11 +29,40 @@ reference's ``_shapes_seen``): the port's counterparts of compilations.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
+from typing import Callable
 
 import torch
 
 CAPTURE_LOG: list[str] = []
 EAGER_LOG: list[str] = []
+
+
+@dataclass
+class Program:
+    """One warm-up entry's program.  ``body()`` reads ``inputs`` and
+    ``state``, writes the new state into ``state``'s tensors and returns
+    its output tensors; ``eager(leaves)`` is the step the body makes, on
+    the leaves given (a name -> tensor dict like ``state``), returning the
+    new leaves (a leaf the step passes through comes back as the same
+    tensor).  ``counted``: the kernel wrappers whose launches a capture
+    holds."""
+
+    name: str
+    kind: str                                   # "step", "adapt" or "engine"
+    body: Callable[[], tuple]
+    state: dict = field(default_factory=dict)
+    inputs: dict = field(default_factory=dict)
+    eager: Callable[[dict], dict] | None = None
+    counted: tuple = ()
+
+    def warm(self):
+        """The body's kernels without writing the state: ``eager`` on
+        copies of the state, or ``body`` for a program with no ``eager``
+        (one that keeps no state)."""
+        if self.eager is None:
+            return self.body()
+        return self.eager({k: t.clone() for k, t in self.state.items()})
 
 
 class StepGraph:
@@ -49,6 +85,12 @@ class StepGraph:
         for wrapper, n in self.launches.items():
             wrapper.launches += n
         return self.outputs
+
+
+def capture_program(program: Program, pool) -> StepGraph:
+    """``capture`` of a ``Program``."""
+    return capture(program.name, program.body, warm=program.warm, pool=pool,
+                   counted=program.counted)
 
 
 def capture(name: str, body, *, warm, pool, counted=()) -> StepGraph:

@@ -199,29 +199,35 @@ class ServingEngine:
             stats["skipped"] = len(buckets)
             return stats
         aot_mod.load_library(aot)
-        cfg, dev = self._cfg, self._device
-        t_used = t // cfg.window * cfg.window
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         for b_pad in buckets:
             if (b_pad, t) in self._graphs:
                 stats["skipped"] += 1
                 continue
-            own = torch.zeros((b_pad,), dtype=torch.int64, device=dev)
-            codes = torch.zeros((b_pad, t_used, cfg.channels), dtype=torch.uint8,
-                                device=dev)
-
-            def body(own=own, codes=codes):
-                return _serve_dispatch(self._tables, self._bank,
-                                       self._param_rows[own], own,
-                                       self._thresholds[own], codes, cfg)
-
-            name = self._aot_name(b_pad, t)
-            g = graphs.capture(name, body, warm=body, pool=self._pool,
-                               counted=(fleet_ops.fleet_counts_kernel,))
-            self._graphs[(b_pad, t)] = (g, own, codes)
-            stats["loaded" if aot is not None and name in aot else "compiled"] += 1
+            prog = self._dispatch_program(b_pad, t)
+            g = graphs.capture_program(prog, self._pool)
+            self._graphs[(b_pad, t)] = (g, prog.inputs["owner"], prog.inputs["codes"])
+            stats["loaded" if aot is not None and prog.name in aot else "compiled"] += 1
         return stats
+
+    def _dispatch_program(self, b_pad: int, t: int) -> graphs.Program:
+        """The dispatch of a padded batch of ``b_pad`` requests of ``t``
+        cycles over fresh static inputs (the owners and the codes): what
+        ``prewarm`` captures and the audit (``analysis/audit.py``) reads.
+        The engine keeps no state, so the program writes none."""
+        cfg, dev = self._cfg, self._device
+        own = torch.zeros((b_pad,), dtype=torch.int64, device=dev)
+        codes = torch.zeros((b_pad, t // cfg.window * cfg.window, cfg.channels),
+                            dtype=torch.uint8, device=dev)
+
+        def body():
+            return _serve_dispatch(self._tables, self._bank, self._param_rows[own], own,
+                                   self._thresholds[own], codes, cfg)
+
+        return graphs.Program(name=self._aot_name(b_pad, t), kind="engine", body=body,
+                              inputs={"owner": own, "codes": codes},
+                              counted=(fleet_ops.fleet_counts_kernel,))
 
     @property
     def device(self) -> torch.device:

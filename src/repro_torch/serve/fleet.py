@@ -228,6 +228,11 @@ def _copy_state(dst: FleetState, src: FleetState) -> None:
             d.copy_(s_)
 
 
+def _leaves(state: FleetState) -> dict:
+    """A state's leaves by name, in field order."""
+    return {f.name: getattr(state, f.name) for f in fields(FleetState)}
+
+
 def _clone_state(state: FleetState) -> FleetState:
     return FleetState(**{f.name: getattr(state, f.name).clone()
                          for f in fields(FleetState)})
@@ -1291,14 +1296,18 @@ class StreamingFleet:
                 regs[k] = reg
         return st
 
-    def _capture_step(self, k: int, t_pad: int) -> graphs.StepGraph:
-        """Capture tile ``k``'s step at bucket ``t_pad`` (on the tile's
-        device, current while this runs)."""
+    def _step_program(self, k: int, t_pad: int) -> graphs.Program:
+        """Tile ``k``'s step at bucket ``t_pad`` over its static tensors:
+        what ``warmup`` captures and the audit (``analysis/audit.py``)
+        reads.  Runs on a CPU fleet too; the tile's device must be current
+        while the body runs."""
         st = self._tile_static(k)
         sl, dev = self._rows_t[k], self._tile_devs[k]
         s = sl.stop - sl.start
-        chunk = st.chunks.setdefault(t_pad, torch.zeros(
-            (s, t_pad, self._cfg.channels), dtype=torch.uint8, device=dev))
+        chunk = st.chunks.get(t_pad)
+        if chunk is None:
+            chunk = st.chunks[t_pad] = torch.zeros(
+                (s, t_pad, self._cfg.channels), dtype=torch.uint8, device=dev)
         extra = {} if self._plan is None else {"faults": self._plan, "draw": st.draw}
         tables = self._tables_dev[dev]
 
@@ -1312,16 +1321,18 @@ class StreamingFleet:
             _copy_state(st.state, new_state)
             return (fo.frames, fo.scores, *ecc)
 
-        g = graphs.capture(self._aot_name("step", s, t_pad), body,
-                           warm=lambda: run(_clone_state(st.state)),
-                           pool=self._graph_pool(dev),
-                           counted=(fleet_ops.fleet_counts_kernel,))
-        self._graphs[(k, t_pad)] = g
-        return g
+        inputs = {"codes": chunk, "lengths": st.lens}
+        if st.draw is not None:
+            inputs.update((f"draw{i}", t) for i, t in enumerate(_draw_leaves(st.draw)))
+        return graphs.Program(
+            name=self._aot_name("step", s, t_pad), kind="step", body=body,
+            state=_leaves(st.state), inputs=inputs,
+            eager=lambda leaves: _leaves(run(FleetState(**leaves))[0]),
+            counted=(fleet_ops.fleet_counts_kernel,))
 
-    def _capture_adapt(self, k: int) -> graphs.StepGraph:
-        """Capture tile ``k``'s adapt (labels and margin as static
-        operands; on the tile's device, current while this runs)."""
+    def _adapt_program(self, k: int) -> graphs.Program:
+        """Tile ``k``'s adapt over its static tensors (labels and margin as
+        static inputs), as ``_step_program``."""
         st = self._tile_static(k)
         sl = self._rows_t[k]
 
@@ -1334,11 +1345,42 @@ class StreamingFleet:
             _copy_state(st.state, new_state)
             return (applied,)
 
-        g = graphs.capture(self._aot_name("adapt", sl.stop - sl.start), body,
-                           warm=lambda: run(_clone_state(st.state)),
-                           pool=self._graph_pool(self._tile_devs[k]))
+        return graphs.Program(
+            name=self._aot_name("adapt", sl.stop - sl.start), kind="adapt", body=body,
+            state=_leaves(st.state), inputs={"labels": st.labels, "margin": st.margin},
+            eager=lambda leaves: _leaves(run(FleetState(**leaves))[0]))
+
+    def _capture_step(self, k: int, t_pad: int) -> graphs.StepGraph:
+        """Capture tile ``k``'s step at bucket ``t_pad`` (on the tile's
+        device, current while this runs)."""
+        g = graphs.capture_program(self._step_program(k, t_pad),
+                                   self._graph_pool(self._tile_devs[k]))
+        self._graphs[(k, t_pad)] = g
+        return g
+
+    def _capture_adapt(self, k: int) -> graphs.StepGraph:
+        """Capture tile ``k``'s adapt (on the tile's device, current while
+        this runs)."""
+        g = graphs.capture_program(self._adapt_program(k),
+                                   self._graph_pool(self._tile_devs[k]))
         self._adapt_graphs[k] = g
         return g
+
+    def programs(self) -> list[tuple[graphs.Program, graphs.StepGraph | None]]:
+        """Every tile's step at every bucket and, when the bank can adapt,
+        its adapt, as ``warmup`` builds them, each with its captured graph
+        (None before ``warmup``).  Builds the tiles' static tensors; a
+        mesh fleet, which steps eagerly on each rank, has none and raises."""
+        if self.mesh is not None:
+            raise ValueError("a mesh fleet's ranks step eagerly: it has no warm-up "
+                             "programs")
+        out = []
+        for k in range(len(self._rows_t)):
+            for b in self._buckets:
+                out.append((self._step_program(k, b), self._graphs.get((k, b))))
+            if self._am_counts0 is not None:
+                out.append((self._adapt_program(k), self._adapt_graphs.get(k)))
+        return out
 
     def warmup(self, *, aot: aot_mod.AOTArtifact | None = None,
                buckets: Sequence[int] | None = None) -> dict[str, int]:
