@@ -69,6 +69,10 @@ def threshold_for_density(counts: torch.Tensor,
     the mean here is taken the same way.  The sum is rounded once from
     float64: the quantiles are multiples of small powers of two, so it is
     exact in float32 in any order.
+
+    Reads the device from the host twice: the quantile's two indices
+    (``.item()`` each), which select the sorted rows' columns.  The result
+    stays on the device.
     """
     a = torch.sort(counts.to(torch.float32), dim=-1).values
     n = a.shape[-1]

@@ -13,6 +13,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch.core import binding, bundling, im
+from repro_torch.runtime.spans import span
 
 
 @dataclass(frozen=True)
@@ -121,7 +122,10 @@ def frame_counts(params: im.IMParams, codes: torch.Tensor,
 def with_density_target(params: im.IMParams, codes: torch.Tensor,
                         cfg: HDCConfig, target: float) -> HDCConfig:
     """cfg with temporal_threshold calibrated so the post-thinning density
-    stays <= ``target`` on the given calibration stream."""
-    counts = frame_counts(params, codes, cfg)
-    thr = int(bundling.threshold_for_density(counts, target))
+    stays <= ``target`` on the given calibration stream.  The threshold is
+    read back to the host: a config field is a Python int."""
+    with span("calibrate.counts"):
+        counts = frame_counts(params, codes, cfg)
+    with span("calibrate.threshold"):
+        thr = int(bundling.threshold_for_density(counts, target))
     return replace(cfg, temporal_threshold=thr)

@@ -41,6 +41,7 @@ from repro_torch.kernels.dense_hdc.ops import dense_encode_frames_fused
 from repro_torch.kernels.dense_hdc.ops import encode_score_fused as dense_encode_score_fused
 from repro_torch.kernels.hdc_am.ops import am_search
 from repro_torch.kernels.hdc_encoder.ops import encode_frames_fused, encode_score_fused
+from repro_torch.runtime.spans import span
 
 VARIANTS = ("sparse_naive", "sparse_compim", "dense")
 
@@ -127,18 +128,20 @@ def _fit_iterative(params, codes: torch.Tensor, labels: torch.Tensor,
     misclassified / low-margin frames at once.  The frames are encoded
     once, and no epoch reads the device from the host.  Returns (class
     HVs, state, (epochs,) int32 gated-update counts)."""
-    frames = _encode_frames(params, codes, cfg)                  # (B, F, W)
-    flat = frames.reshape(-1, frames.shape[-1])
-    bits = hv.unpack_bits(flat, cfg.dim)
-    lab = labels.reshape(-1)
-    state = online.state_from_frames(bits, lab, cfg.n_classes)
-    n_upd = torch.zeros((epochs,), dtype=torch.int32, device=flat.device)
+    with span("fit.encode"):
+        frames = _encode_frames(params, codes, cfg)              # (B, F, W)
+        flat = frames.reshape(-1, frames.shape[-1])
+        bits = hv.unpack_bits(flat, cfg.dim)
+        lab = labels.reshape(-1)
+        state = online.state_from_frames(bits, lab, cfg.n_classes)
+        n_upd = torch.zeros((epochs,), dtype=torch.int32, device=flat.device)
     for e in range(epochs):
-        chvs = online.class_hvs_from_state(state, cfg)
-        scores = am_search(flat, chvs, mode=_am_mode(cfg), dim=cfg.dim)
-        state, gate = online.batch_update(state, bits, lab, scores,
-                                          margin=margin)
-        n_upd[e] = gate.sum(dtype=torch.int32)
+        with span("fit.epoch"):
+            chvs = online.class_hvs_from_state(state, cfg)
+            scores = am_search(flat, chvs, mode=_am_mode(cfg), dim=cfg.dim)
+            state, gate = online.batch_update(state, bits, lab, scores,
+                                              margin=margin)
+            n_upd[e] = gate.sum(dtype=torch.int32)
     return online.class_hvs_from_state(state, cfg), state, n_upd
 
 
@@ -237,9 +240,10 @@ class HDCPipeline:
         a changed threshold drops trained class HVs."""
         if self.cfg.variant == "dense":
             return self
-        new_cfg = classifier.with_density_target(
-            self.params, self._codes(codes), self.cfg, target)
-        return self.with_cfg(temporal_threshold=new_cfg.temporal_threshold)
+        with span("calibrate"):
+            new_cfg = classifier.with_density_target(
+                self.params, self._codes(codes), self.cfg, target)
+            return self.with_cfg(temporal_threshold=new_cfg.temporal_threshold)
 
     def _check_labels(self, labels: torch.Tensor) -> None:
         """Reject training batches that would silently corrupt class HVs
@@ -277,11 +281,13 @@ class HDCPipeline:
         rival is below it; ``epochs=0`` equals ``train_one_shot``."""
         if epochs < 0:
             raise ValueError(f"epochs={epochs} must be >= 0")
-        labels = torch.as_tensor(labels, device=self.device)
-        self._check_labels(labels)
-        chvs, state, _ = _fit_iterative(self.params, self._codes(codes),
-                                        labels, margin, self.cfg, epochs)
-        return replace(self, class_hvs=chvs, am_state=state)
+        with span("fit"):
+            labels = torch.as_tensor(labels, device=self.device)
+            with span("fit.labels"):
+                self._check_labels(labels)
+            chvs, state, _ = _fit_iterative(self.params, self._codes(codes),
+                                            labels, margin, self.cfg, epochs)
+            return replace(self, class_hvs=chvs, am_state=state)
 
     def _trained(self) -> torch.Tensor:
         if self.class_hvs is None:
@@ -299,5 +305,6 @@ class HDCPipeline:
         """(B, T, channels) codes -> (scores (B, F, n_classes),
         predictions (B, F) int32, argmax with ties to the lower class): on
         the card one launch of the encoder kernel with its AM epilogue."""
-        return _encode_score(self.params, self._codes(codes), self.cfg,
-                             self._trained())
+        with span("infer"):
+            return _encode_score(self.params, self._codes(codes), self.cfg,
+                                 self._trained())
