@@ -30,7 +30,12 @@ Phases (one line each, any failure exits non-zero):
    scores and predictions) at the main shape as ``infer(codes[1:])`` gives
    it (``or``, thinning at 2, dense; beside it the old five-launch chain),
    D = 2048, 1, 3 and 33 classes, tied class rows, window 40 and a strided
-   batch;
+   batch; ``hdc_encoder`` with its counts epilogue (``frame_counts_fused``,
+   calibration's counts) at the onboarding cell's shape (one hour, 7199
+   frames), with thinning at 2 and 3 on a strided batch, in
+   ``sparse_naive``'s forced thinning against its bit-domain datapath, and
+   at the encoder's edges (S = 7, spatial thresholds 0 and C + 1, a table
+   too large for shared memory);
 4. the main path (``sparse_compim``) at the paper's geometry: raw iEEG ->
    LBP codes on the card for 16 synthetic patients, per-patient
    calibration + one-shot training, detection on the held-out seizures,
@@ -83,7 +88,9 @@ Phases (one line each, any failure exits non-zero):
    the fleet made on the card (32 sessions: state, frames, scores, ECC
    counts); a ``set_ber`` walk over 0, 1e-4, 1e-3, 1e-2 (ECC sums, frame
    disagreement with the clean run); the clean and the faulted round timed
-   in turns, one of each profiled, and the draw alone; ``run_sweep`` at the
+   in turns, one of each profiled, and the draw alone; the sweep's
+   sparse_opt calibration on the card (the counts epilogue) against the
+   CPU's, threshold for threshold; ``run_sweep`` at the
    paper's geometry (sparse_opt and dense, none and SECDED, BERs 0, 1e-3
    and 1e-2, 4 patients x 2 records; every BER-0 point bit-exact, the
    points printed on a line); and ``FleetChannelMonitor`` on 64 sessions
@@ -313,14 +320,18 @@ KERNELS = {
                   "src/repro/kernels/dense_hdc/kernel.py:50"),
 }
 # the kernels each path must launch; am_epilogue_*: the encoder kernels
-# launched with their AM epilogue (encode_score_fused, HDCPipeline.infer)
+# launched with their AM epilogue (encode_score_fused, HDCPipeline.infer);
+# counts_epilogue: the sparse encoder with its counts epilogue
+# (frame_counts_fused, HDCPipeline.calibrate_density)
 PATH_KERNELS = {
-    "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
+    "sparse_compim": ("lbp", "hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse",
+                      "counts_epilogue"),
     "dense": ("dense_hdc", "hdc_am", "hdc_fleet", "am_epilogue_dense"),
-    "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse"),
+    "sparse_naive": ("hdc_encoder", "hdc_am", "hdc_fleet", "am_epilogue_sparse",
+                     "counts_epilogue"),
     "online": ("hdc_encoder", "hdc_am", "hdc_fleet"),
     "elastic": ("hdc_fleet",),
-    "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet"),
+    "reliability": ("hdc_encoder", "dense_hdc", "hdc_fleet", "counts_epilogue"),
     "deploy": ("hdc_fleet",),
     "audit": ("hdc_fleet",),  # phase 17: bodies run eagerly, warm-ups, graph replays
     "mesh": ("hdc_fleet",),
@@ -519,7 +530,7 @@ def fused_launch_split(params, codes, cfg, cls) -> dict:
             lead[0] * per_row, cfg.window, codes.shape[-1],
             params.item_pos.shape[1], cfg.segments, cfg.seg_len, cfg.temporal_threshold, 0,
             cfg.spatial_threshold, per_row, pitch, cls.data_ptr(), scores.data_ptr(),
-            preds.data_ptr(), cls.shape[0], stream)
+            preds.data_ptr(), cls.shape[0], None, stream)
     return host_split(f"encode_score_fused host path at codes{tuple(codes.shape)}", {
         "ctypes call": lambda: lib.hdc_encoder_launch(*args),
         "whole wrapper": lambda: enc_ops.encode_score_fused(params, codes, cfg, cls),
@@ -682,6 +693,7 @@ def check_kernels(shapes: dict) -> KernelCheck:
                    n_ops=n * win * w * (c + 1), main=case == "main", reps=10,
                    plain_reps=2)
     check_fused(kc, g, shapes)
+    check_counts(kc, g, shapes)
     return kc
 
 
@@ -841,6 +853,74 @@ def check_fused(kc: KernelCheck, g, shapes: dict) -> None:
                 f"(device {o_dev:.4f} ms)")
 
 
+def check_counts(kc: KernelCheck, g, shapes: dict) -> None:
+    """The sparse encoder with its counts epilogue (``frame_counts_fused``,
+    calibration's counts) against its plain version, the position-domain
+    ``classifier.frame_counts``, the (B, F, D) int32 counts equal: ``main``
+    at the onboarding cell's shape (one hour of 64 channels, 7199 frames;
+    ``or``), thinning at 2 and 3 on a strided batch (``codes[1:]``, window
+    40), and ``sparse_naive``'s forced thinning (``pipeline._fused_sparse_cfg``)
+    against the naive bit-domain datapath on codebooks drawn by ``make_im``.
+    Beside them the encoder's edge cases in this mode: one segment a table
+    load (S = 7), every spatial bit on or off (thresholds 0 and C + 1), and a
+    table too large for shared memory (C = 300, K = 256)."""
+    from repro_torch.core import classifier
+    from repro_torch.core.classifier import HDCConfig
+    from repro_torch.core.im import IMParams, make_im
+    from repro_torch.core.pipeline import _fused_sparse_cfg
+    from repro_torch.kernels.hdc_encoder import ops as enc_ops
+
+    small = (3, 3 * 48 + 5)
+    out = {}
+    for case, (rows, t, c), take, fields in (
+            ("main", shapes["onboard"], slice(None), {}),
+            ("thin2", (3, 5 * 40 + 7, 64), slice(1, None),
+             dict(window=40, spatial_thinning=True, spatial_threshold=2)),
+            ("thin3", (3, 5 * 40 + 7, 64), slice(1, None),
+             dict(window=40, spatial_thinning=True, spatial_threshold=3)),
+            ("naive", (3, 6 * 256 + 9, 64), slice(1, None), dict(variant="sparse_naive")),
+            ("s7", (*small, 5), slice(1, None), dict(segments=7, dim=224, window=48)),
+            ("s7thin2", (*small, 5), slice(1, None),
+             dict(segments=7, dim=224, window=48, spatial_thinning=True,
+                  spatial_threshold=2)),
+            ("thr0", (*small, 9), slice(1, None),
+             dict(window=48, spatial_thinning=True, spatial_threshold=0)),
+            ("thrC1", (*small, 9), slice(1, None),
+             dict(window=48, spatial_thinning=True, spatial_threshold=10)),
+            ("c300", (3, 2 * 40 + 3, 300), slice(1, None),
+             dict(dim=512, lbp_bits=8, window=40)),
+            ("c300thin2", (3, 2 * 40 + 3, 300), slice(1, None),
+             dict(dim=512, lbp_bits=8, window=40, spatial_thinning=True,
+                  spatial_threshold=2))):
+        cfg = HDCConfig(**{"channels": c, **fields})
+        codes = torch.randint(0, cfg.codes if case == "main" else min(cfg.codes + 8, 256),
+                              (rows, t, c), generator=g, dtype=torch.uint8).cuda()[take]
+        n = codes.shape[0] * (t // cfg.window)
+        if case == "naive":
+            params = make_im(torch.Generator(device="cuda").manual_seed(SEED), channels=c,
+                             codes=cfg.codes, dim=cfg.dim, segments=cfg.segments,
+                             device="cuda", precompute_packed=True)
+            kcfg = _fused_sparse_cfg(cfg)
+        else:
+            params = IMParams(
+                torch.randint(0, cfg.seg_len, (c, cfg.codes, cfg.segments), generator=g,
+                              dtype=torch.uint8).cuda(),
+                torch.randint(0, cfg.seg_len, (c, cfg.segments), generator=g,
+                              dtype=torch.uint8).cuda(), cfg.dim, cfg.segments)
+            kcfg = cfg
+        work = enc_ops.work(n, cfg.window, c, cfg.codes, cfg.segments, cfg.seg_len,
+                            counts=True)
+        out[case] = kc.compare(
+            "hdc_encoder", f"+counts {case} codes{tuple(codes.shape)} S={cfg.segments} "
+            f"K={cfg.codes} thin={kcfg.spatial_thinning} thr={kcfg.spatial_threshold}",
+            enc_ops.frame_counts_fused, lambda: enc_ops.frame_counts_fused(params, codes, kcfg),
+            lambda: classifier.frame_counts(params, codes, cfg), n_bytes=work[0],
+            n_ops=work[1], main=False, reps=20 if case == "main" else 5, plain_reps=1)
+        del codes, params
+        torch.cuda.empty_cache()
+    kc.rows["hdc_encoder"]["counts"] = out
+
+
 # ---------------------------------------------------------------------------
 # phases 4-7: the paths
 # ---------------------------------------------------------------------------
@@ -886,10 +966,11 @@ def lbp_on_card(patients, bits: int) -> list[torch.Tensor]:
 def device_busy(prof) -> tuple[float, dict]:
     """Device-side time (ms) of a profiled window, and its entries (us) by
     name.  An operator's own entry repeats the device time of the kernels
-    it launched, so only device-side events count."""
+    it launched, so only device-side events count; so does a program span's
+    device-side annotation (``repro_torch.*``), which is left out."""
     dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}
+              and e.self_device_time_total > 0 and not e.key.startswith("repro_torch.")}
     return sum(dev_us.values()) / 1e3, dev_us
 
 
@@ -1140,14 +1221,15 @@ def _probe_trace(fn, bracket) -> list[str]:
     of ``fn`` in one profiler trace, between two bracket fills: one
     warm-up step under the profiler, then the counted step (the tracer may
     miss a short call's kernels in the step that starts it); the step's
-    own device-side annotation is not a kernel."""
+    own device-side annotation is not a kernel, nor are those of the
+    program's spans (``runtime/spans.py``: ``repro_torch.infer``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     seen: list[str] = []
 
     def read(p):
         seen.extend(e.name for e in p.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.name.startswith("ProfilerStep"))
+                    and not e.name.startswith(("ProfilerStep", "repro_torch.")))
 
     with torch.profiler.profile(
             activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
@@ -2126,14 +2208,34 @@ def faulted_fleet(tag: str, bank: dict, records) -> dict:
 def sweep_on_card(tag: str) -> dict:
     """``run_sweep`` on the card: sparse_opt and dense, density 0.25, no ECC
     and SECDED, BERs 0, 1e-3 and 1e-2 on all three targets, 4 patients x 2
-    test records at the paper's geometry; every BER-0 point bit-exact."""
-    from repro_torch.core.pipeline import HDCConfig
+    test records at the paper's geometry; every BER-0 point bit-exact.
+    Before it, the sweep's sparse_opt training (``train_pipelines``, whose
+    calibration takes its counts from the encoder's counts epilogue) holds
+    each patient's calibrated threshold against the CPU's plain datapath on
+    the same codebooks and training record."""
+    from repro_torch.core.pipeline import HDCConfig, HDCPipeline
     from repro_torch.reliability import sweep
+
+    base = HDCConfig()
+    sessions = sweep.make_sessions(n_patients=SWEEP_PATIENTS, n_test=SWEEP_TESTS,
+                                   channels=base.channels, seed=SEED)
+    pipes, cfg = sweep.train_pipelines("sparse_opt", 0.25, sessions, base, seed=SEED)
+    thresholds = {}
+    for name, pipe in pipes.items():
+        codes = torch.as_tensor(sessions["train"][name].codes[None])
+        cpu = HDCPipeline(params=pipe.params.to("cpu"), cfg=cfg).calibrate_density(
+            codes, target=0.25)
+        thresholds[name] = (pipe.cfg.temporal_threshold, cpu.cfg.temporal_threshold)
+    expect(all(a == b for a, b in thresholds.values()),
+           f"{tag}: the sweep's calibration on the card differs from the CPU's: {thresholds}")
+    log(f"[{tag}] the sweep's sparse_opt calibration: thresholds on the card equal the "
+        f"CPU's plain datapath's, {[a for a, _ in thresholds.values()]}")
+    del pipes
 
     t0 = time.perf_counter()
     points = sweep.run_sweep(variants=("sparse_opt", "dense"), densities=(0.25,),
                              bers=(0.0, 1e-3, 1e-2), schemes=("none", "secded"),
-                             base_cfg=HDCConfig(), n_patients=SWEEP_PATIENTS,
+                             base_cfg=base, n_patients=SWEEP_PATIENTS,
                              n_test=SWEEP_TESTS, seed=SEED)
     took = time.perf_counter() - t0
     log(f"[{tag}] sweep points: " + json.dumps(points))
@@ -2216,7 +2318,8 @@ def kernel_wrappers() -> dict:
             "hdc_am": am_search, "hdc_fleet": fleet_counts_kernel,
             "dense_hdc": dense_ops.dense_encoder,
             "am_epilogue_sparse": enc_ops.encode_score_fused,
-            "am_epilogue_dense": dense_ops.encode_score_fused}
+            "am_epilogue_dense": dense_ops.encode_score_fused,
+            "counts_epilogue": enc_ops.frame_counts_fused}
 
 
 class Launches:
@@ -4918,6 +5021,7 @@ def main() -> int:
     shapes = {
         "lbp": (SEIZURES, rec_t + 6, 64),
         "codes": (SEIZURES, rec_t, 64),
+        "onboard": (1, 3600 * 512 - 6, 64),     # the onboarding cell's hour of codes
         "encoder": (SEIZURES - 1, frames, 256, 64, 8, 128),
         "am": ((SEIZURES - 1) * frames, 2, 32),
         "fleet": (PATIENTS, SESSIONS, 256, 64, 64, 32, 256),
@@ -5013,11 +5117,14 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
                      "device_ms": r["device_ms"],
-                     **{k: r[k] for k in ("modes", "faulted_bank", "fused", "launch_split_us",
-                                            "fused_launch_split_us") if k in r}})
+                     **{k: r[k] for k in ("modes", "faulted_bank", "fused", "counts",
+                                            "launch_split_us", "fused_launch_split_us")
+                        if k in r}})
         if name == "hdc_am":
             rows[-1]["epilogue_launches"] = (launches.total("am_epilogue_sparse")
                                              + launches.total("am_epilogue_dense"))
+        if name == "hdc_encoder":
+            rows[-1]["counts_launches"] = launches.total("counts_epilogue")
         if name in ("hdc_encoder", "dense_hdc"):  # infer(codes[1:]) on each path
             rows[-1]["infer"] = {p: v for p, v in probes.items()
                                  if (p == "dense") == (name == "dense_hdc")}

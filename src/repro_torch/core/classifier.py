@@ -120,12 +120,15 @@ def frame_counts(params: im.IMParams, codes: torch.Tensor,
 
 
 def with_density_target(params: im.IMParams, codes: torch.Tensor,
-                        cfg: HDCConfig, target: float) -> HDCConfig:
+                        cfg: HDCConfig, target: float, *,
+                        counts_fn=frame_counts) -> HDCConfig:
     """cfg with temporal_threshold calibrated so the post-thinning density
-    stays <= ``target`` on the given calibration stream.  The threshold is
-    read back to the host: a config field is a Python int."""
+    stays <= ``target`` on the given calibration stream, from the counts
+    ``counts_fn(params, codes, cfg)`` gives (the plain ``frame_counts``
+    unless the caller routes them to a kernel).  The threshold is read back
+    to the host: a config field is a Python int."""
     with span("calibrate.counts"):
-        counts = frame_counts(params, codes, cfg)
+        counts = counts_fn(params, codes, cfg)
     with span("calibrate.threshold"):
         thr = int(bundling.threshold_for_density(counts, target))
     return replace(cfg, temporal_threshold=thr)

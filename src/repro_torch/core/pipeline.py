@@ -20,8 +20,10 @@ passed to ``init``).  Encoding runs the encoder kernels and scoring the AM
 kernel on the card, their plain versions on the CPU; ``infer`` on the card
 is one launch, the encoder kernel with its AM epilogue, while ``scores``
 keeps the standalone AM kernel, which ``fit_iterative`` runs once an epoch.
-Calibration runs the plain datapath, as in the reference.  Methods are
-pure: training and calibration return new pipelines.
+Calibration's counts on the card are one launch too, the encoder kernel
+with its counts epilogue; on the CPU the plain datapath, as in the
+reference.  Methods are pure: training and calibration return new
+pipelines.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.dense_hdc.ops import dense_encode_frames_fused
 from repro_torch.kernels.dense_hdc.ops import encode_score_fused as dense_encode_score_fused
 from repro_torch.kernels.hdc_am.ops import am_search
-from repro_torch.kernels.hdc_encoder.ops import encode_frames_fused, encode_score_fused
+from repro_torch.kernels.hdc_encoder.ops import (encode_frames_fused, encode_score_fused,
+                                                 frame_counts_fused)
 from repro_torch.runtime.spans import span
 
 VARIANTS = ("sparse_naive", "sparse_compim", "dense")
@@ -111,12 +114,17 @@ def _encode_score(params, codes: torch.Tensor, cfg: HDCConfig,
 
 
 def _frame_counts(params, codes: torch.Tensor, cfg: HDCConfig) -> torch.Tensor:
-    """Temporal accumulator counts per frame (B, F, D) int32."""
-    if cfg.variant != "dense":
+    """Temporal accumulator counts per frame (B, F, D) int32: for the sparse
+    variants the encoder kernel with its counts epilogue on CUDA tensors,
+    routed as ``_encode_frames`` routes them; dense (which never
+    calibrates) and CPU tensors take the plain datapaths."""
+    if cfg.variant == "dense":
+        spatial = spatial_encode(params, classifier.frame_view(codes, cfg.window),
+                                 cfg)
+        return bundling.temporal_counts(spatial, cfg.dim)
+    if cfg.variant == "sparse_naive" and codes.device.type == "cpu":
         return classifier.frame_counts(params, codes, cfg)
-    spatial = spatial_encode(params, classifier.frame_view(codes, cfg.window),
-                             cfg)
-    return bundling.temporal_counts(spatial, cfg.dim)
+    return frame_counts_fused(params, codes, _fused_sparse_cfg(cfg))
 
 
 def _fit_iterative(params, codes: torch.Tensor, labels: torch.Tensor,
@@ -242,7 +250,8 @@ class HDCPipeline:
             return self
         with span("calibrate"):
             new_cfg = classifier.with_density_target(
-                self.params, self._codes(codes), self.cfg, target)
+                self.params, self._codes(codes), self.cfg, target,
+                counts_fn=_frame_counts)
             return self.with_cfg(temporal_threshold=new_cfg.temporal_threshold)
 
     def _check_labels(self, labels: torch.Tensor) -> None:

@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "lbp_codes_launch": [_P, _P, _L, _L, _L, _I, _P],
     "hdc_encoder_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _L, _L, _P, _P, _P, _I, _P],
+                           _L, _L, _P, _P, _P, _I, _P, _P],
     "hdc_am_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     "hdc_fleet_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],

@@ -7,16 +7,19 @@ the (..., window, C, S) position tensor is never materialised on the card.
 The pipeline's entry points hand it the (B, T, C) code stream where it lies
 (``codes[1:]`` cut to whole frames is not copied), and with the class HVs
 it scores the frames itself (its AM epilogue): ``encode_score_fused`` is
-the offline pipeline's whole inference in one launch.
+the offline pipeline's whole inference in one launch.  Its counts epilogue
+writes the temporal counts before the threshold instead
+(``frame_counts_fused``): calibration's counts in one launch.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 
-from repro_torch.core.classifier import HDCConfig, frame_view
+from repro_torch.core.classifier import HDCConfig, frame_counts, frame_view
 from repro_torch.core.im import IMParams
 from repro_torch.kernels import build
 from repro_torch.kernels.common import all_fake, plain, require, stream_rows, use_plain
@@ -25,14 +28,16 @@ from repro_torch.runtime import op_cost
 
 
 def work(n_frames: int, window: int, channels: int, codes_k: int, segments: int,
-         seg_len: int, n_classes: int = 0) -> tuple[int, int]:
+         seg_len: int, n_classes: int = 0, counts: bool = False) -> tuple[int, int]:
     """(bytes, integer operations) of one launch over ``n_frames`` frames:
     the bound of the encoder's row in PERF.md's kernel table.  Bytes: the
     codes, the CompIM table (C, K, S) and the electrode positions once, and
     the frame HVs written, or with ``n_classes`` class rows the rows read
-    and the scores and predictions written.  Operations: a bind per (frame,
-    cycle, channel, segment), a word operation per (frame, cycle, word),
-    and two per (frame, class, word) in the AM epilogue (AND, popcount)."""
+    and the scores and predictions written, or with ``counts`` (the counts
+    epilogue) the (n_frames, D) int32 counts written.  Operations: a bind
+    per (frame, cycle, channel, segment), a word operation per (frame,
+    cycle, word), and two per (frame, class, word) in the AM epilogue (AND,
+    popcount)."""
     words = segments * seg_len // 32
     n_bytes = (n_frames * window * channels + channels * codes_k * segments
                + channels * segments)
@@ -40,6 +45,8 @@ def work(n_frames: int, window: int, channels: int, codes_k: int, segments: int,
     if n_classes:
         n_bytes += n_classes * words * 4 + n_frames * (n_classes + 1) * 4
         n_ops += n_frames * n_classes * words * 2
+    elif counts:
+        n_bytes += n_frames * words * 32 * 4
     else:
         n_bytes += n_frames * words * 4
     return n_bytes, n_ops
@@ -47,12 +54,13 @@ def work(n_frames: int, window: int, channels: int, codes_k: int, segments: int,
 
 def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
             scores, preds, *, window, segments, seg_len, temporal_threshold,
-            spatial_thinning, spatial_threshold) -> bool:
+            spatial_thinning, spatial_threshold, counts=None) -> bool:
     """Check the tables and classes and launch over ``n_frames`` frames of
     codes (uint8, checked by the caller), ``per_row`` to a batch row, rows
     ``pitch`` bytes apart: frame words into ``out`` (or None), the AM
-    epilogue's scores and predictions when ``classes`` is given.  True when
-    it launched.  On fake tensors (the dry-run) the outputs are already
+    epilogue's scores and predictions when ``classes`` is given, or the
+    counts epilogue's (n_frames, D) counts into ``counts``.  True when it
+    launched.  On fake tensors (the dry-run) the outputs are already
     made: the launch and its ``work`` are recorded in ``op_cost``, nothing
     runs, the wrappers' ``launches`` counts stay as they were, and False is
     returned."""
@@ -72,7 +80,8 @@ def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
     operands = (codes, item_pos, elec) + (() if classes is None else (classes,))
     if all_fake(*operands):
         op_cost.record_kernel("hdc_encoder", *work(
-            n_frames, window, c, item_pos.shape[1], segments, seg_len, n_cls))
+            n_frames, window, c, item_pos.shape[1], segments, seg_len, n_cls,
+            counts is not None))
         return False
     err = build.lib().hdc_encoder_launch(
         codes.data_ptr(), item_pos.data_ptr(), elec.data_ptr(),
@@ -82,7 +91,7 @@ def _launch(codes, n_frames, per_row, pitch, item_pos, elec, out, classes,
         None if classes is None else classes.data_ptr(),
         None if scores is None else scores.data_ptr(),
         None if preds is None else preds.data_ptr(), n_cls,
-        build.stream_ptr(codes))
+        None if counts is None else counts.data_ptr(), build.stream_ptr(codes))
     build.check(err, "hdc_encoder")
     encoder.launches += 1
     return True
@@ -126,28 +135,31 @@ def _cfg_kw(cfg: HDCConfig) -> dict:
 
 
 def _stream_launch(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
-                   class_hvs: torch.Tensor | None):
+                   class_hvs: torch.Tensor | None, counts: bool = False):
     """The kernel over a (B, T, C) stream read in place: frame HVs
     (B, F, W), or with class HVs (scores (B, F, n_classes), predictions
-    (B, F))."""
+    (B, F)), or with ``counts`` the temporal counts (B, F, D)."""
     require(codes, "codes", torch.uint8, contiguous=False)
     per_row, pitch = stream_rows(codes, cfg.window)
     lead = (codes.shape[0], per_row)
     dev = codes.device
-    if class_hvs is None:
-        out = torch.empty((*lead, cfg.words), dtype=torch.int32, device=dev)
-        res = out
-        scores = preds = None
+    out = scores = preds = cnt = None
+    if counts:
+        res = cnt = torch.empty((*lead, cfg.dim), dtype=torch.int32, device=dev)
+    elif class_hvs is None:
+        res = out = torch.empty((*lead, cfg.words), dtype=torch.int32, device=dev)
     else:
-        out = None
         scores = torch.empty((*lead, class_hvs.shape[0]), dtype=torch.int32, device=dev)
         preds = torch.empty(lead, dtype=torch.int32, device=dev)
         res = scores, preds
     if lead[0] * per_row:
         launched = _launch(codes, lead[0] * per_row, per_row, pitch, params.item_pos,
-                           params.elec_pos, out, class_hvs, scores, preds, **_cfg_kw(cfg))
+                           params.elec_pos, out, class_hvs, scores, preds, **_cfg_kw(cfg),
+                           counts=cnt)
         if launched and class_hvs is not None:
             encode_score_fused.launches += 1
+        if launched and counts:
+            frame_counts_fused.launches += 1
     return res
 
 
@@ -174,3 +186,18 @@ def encode_score_fused(params: IMParams, codes: torch.Tensor, cfg: HDCConfig,
 
 
 encode_score_fused.launches = 0
+
+
+def frame_counts_fused(params: IMParams, codes: torch.Tensor,
+                       cfg: HDCConfig) -> torch.Tensor:
+    """(B, T, C) uint8 codes -> (B, F, D) int32 temporal counts before the
+    threshold (calibration's counts): the encoder kernel with its counts
+    epilogue, one launch; no frame HVs are written.  Its plain version is
+    the position-domain ``classifier.frame_counts``."""
+    if use_plain(codes, params.item_pos, params.elec_pos):
+        return plain("hdc_encoder", frame_counts, params, codes,
+                     replace(cfg, variant="sparse_compim"))
+    return _stream_launch(params, codes, cfg, None, counts=True)
+
+
+frame_counts_fused.launches = 0

@@ -271,15 +271,24 @@ def _warp_transpose(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def _encoder_mirror(codes, item, elec, *, window, segments, seg_len,
-                    temporal_threshold, spatial_thinning, spatial_threshold):
-    """hdc_encoder.cu in numpy: the bound table as a block builds it, the
-    launcher's choice of mode and planes, a lane per cycle rippling each
-    position's one-hot (bit s * L + p, word k) up a saturating bit-sliced
-    counter whose top plane is sticky, the top-down compare, then per
-    32-cycle group (a warp) the shuffle transpose and popcounts, the groups
-    summed, the threshold and pack.  Lanes past the window leave zero
-    rows."""
+def _encoder_mirror(codes, item, elec, *, temporal_threshold, **kw):
+    """hdc_encoder.cu in numpy: the frames' counts (``_counts_mirror``),
+    then the frame-word epilogue's threshold and pack."""
+    counts = _counts_mirror(codes, item, elec, **kw)
+    n, d = counts.shape
+    bits = (counts >= temporal_threshold).reshape(n, d // 32, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def _counts_mirror(codes, item, elec, *, window, segments, seg_len,
+                   spatial_thinning, spatial_threshold):
+    """hdc_encoder.cu up to its epilogues, in numpy: the bound table as a
+    block builds it, the launcher's choice of mode and planes, a lane per
+    cycle rippling each position's one-hot (bit s * L + p, word k) up a
+    saturating bit-sliced counter whose top plane is sticky, the top-down
+    compare, then per 32-cycle group (a warp) the shuffle transpose and
+    popcounts, the groups summed into (N, D) counts.  Lanes past the window
+    leave zero rows."""
     n, _, c = codes.shape
     k, s, seg = item.shape[1], segments, seg_len
     d = s * seg
@@ -328,8 +337,7 @@ def _encoder_mirror(codes, item, elec, *, window, segments, seg_len,
     for g in range(groups):
         tv = _warp_transpose(rows[:, 32 * g:32 * g + 32])     # (N, lane b, W)
         counts += _popcount32(tv).transpose(0, 2, 1).reshape(n, d)
-    bits = (counts >= temporal_threshold).reshape(n, w, 32).astype(np.uint64)
-    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    return counts
 
 
 @pytest.mark.parametrize("window,c,segments,seg_len,lbp_bits,thinning,thr_s",
@@ -361,6 +369,167 @@ def test_encoder_mirror_thresholds_and_wide_positions(thr):
                   spatial_thinning=True, spatial_threshold=thr)
         np.testing.assert_array_equal(_encoder_mirror(codes, item, elec, **kw),
                                       _enc_plain(codes, item, elec, **kw))
+
+
+def _counts_epilogue_mirror(flat, offset, rows, fpr, pitch, c, item, elec, *,
+                            window, **kw):
+    """hdc_encoder.cu's counts mode over a (B, T, C) stream read in place:
+    frame n's codes from byte offset + (n // fpr) * pitch + (n % fpr) *
+    window * C of the buffer (frame_codes), its counts as the shared mirror
+    gives them, and the epilogue's store: lane b of the warp on word k
+    writes count 32 k + b of frame n at n * D + 32 k + b."""
+    n_frames = rows * fpr
+    starts = offset + (np.arange(n_frames) // fpr) * pitch + (np.arange(n_frames) % fpr) * window * c
+    frames = np.stack([flat[a:a + window * c] for a in starts]).reshape(n_frames, window, c)
+    counts = _counts_mirror(frames, item, elec, window=window, **kw)
+    d = counts.shape[1]
+    out = np.full(n_frames * d, -1, np.int64)
+    idx = (np.arange(n_frames)[:, None, None] * d + 32 * np.arange(d // 32)[None, :, None]
+           + np.arange(32))
+    out[idx] = counts.reshape(n_frames, d // 32, 32)
+    return out.reshape(rows, fpr, d)
+
+
+# (window, channels, segments, seg_len, lbp_bits, thinning, spatial threshold,
+#  strided): the OR mode (one plane), thinning at 2 (two planes) and at 3
+#  (planes read at run time), windows that are no multiple of 32, codes[1:]
+_COUNTS_CASES = [
+    (64, 6, 8, 32, 6, False, 1, True),
+    (40, 5, 7, 32, 6, False, 1, False),
+    (40, 5, 7, 32, 6, True, 2, True),
+    (48, 64, 8, 128, 6, True, 3, True),
+    (33, 9, 8, 48, 3, True, 3, False),
+    (256, 64, 8, 128, 6, True, 2, True),
+]
+
+
+@pytest.mark.parametrize("window,c,segments,seg_len,lbp_bits,thinning,thr_s,strided",
+                         _COUNTS_CASES)
+def test_counts_epilogue_mirror_matches_plain_frame_counts(window, c, segments, seg_len,
+                                                           lbp_bits, thinning, thr_s,
+                                                           strided):
+    """The counts epilogue (its mirror, reading a strided stream where it
+    lies) against the plain ``classifier.frame_counts``, and the wrapper's
+    plain version against both."""
+    from repro_torch.core import classifier
+
+    rng = np.random.default_rng(window * 31 + c)
+    k = 1 << lbp_bits
+    t = 3 * window + 5
+    full, item, elec, _ = _compim_operands(rng, (3,), t, c, k, segments, seg_len)
+    full = np.ascontiguousarray(full.reshape(3, t, c))
+    view = torch.from_numpy(full)[1:] if strided else torch.from_numpy(full)
+    fpr, pitch = stream_rows(view, window)
+    offset = view.storage_offset()
+    cfg = HDCConfig(dim=segments * seg_len, segments=segments, channels=c, window=window,
+                    lbp_bits=lbp_bits, spatial_thinning=thinning, spatial_threshold=thr_s)
+    params = IMParams(torch.from_numpy(item), torch.from_numpy(elec), cfg.dim, segments)
+    want = classifier.frame_counts(params, view, cfg).numpy()
+    got = _counts_epilogue_mirror(full.reshape(-1), offset, view.shape[0], fpr, pitch, c,
+                                  item, elec, window=window, segments=segments,
+                                  seg_len=seg_len, spatial_thinning=thinning,
+                                  spatial_threshold=thr_s)
+    np.testing.assert_array_equal(got, want)
+    plain = enc_ops.frame_counts_fused(params, view, cfg)
+    assert plain.dtype == torch.int32
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert enc_ops.frame_counts_fused.launches == 0   # CPU tensors never launch
+
+
+@pytest.mark.parametrize("thinning,thr_s", [(False, 2), (True, 2), (True, 3)])
+def test_frame_counts_fused_plain_matches_reference(thinning, thr_s):
+    """The counts wrapper's plain version against the reference's
+    ``frame_counts`` for ``sparse_compim``, and, through the forced thinning
+    the pipeline hands the kernel (``_fused_sparse_cfg``), for
+    ``sparse_naive``'s bit-domain datapath."""
+    from repro_torch.core import classifier
+    from repro_torch.core.pipeline import _fused_sparse_cfg
+
+    kw = dict(dim=256, segments=8, channels=6, window=40, spatial_thinning=thinning,
+              spatial_threshold=thr_s)
+    codes = np.random.default_rng(thr_s).integers(0, 64, (2, 3 * 40 + 7, 6), dtype=np.uint8)
+    for variant in ("sparse_compim", "sparse_naive"):
+        jcfg, tcfg = JConfig(variant=variant, **kw), HDCConfig(variant=variant, **kw)
+        jparams = j_classifier.init_params(jax.random.PRNGKey(thr_s), jcfg)
+        tparams = IMParams(torch.from_numpy(np.asarray(jparams.item_pos).copy()),
+                           torch.from_numpy(np.asarray(jparams.elec_pos).copy()), 256, 8)
+        want = np.asarray(_jit(j_classifier.frame_counts, cfg=jcfg)(jparams, jnp.asarray(codes)))
+        got = enc_ops.frame_counts_fused(tparams, torch.from_numpy(codes),
+                                         _fused_sparse_cfg(tcfg))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=variant)
+        if variant == "sparse_naive":
+            tparams = tparams.with_packed(True)
+            np.testing.assert_array_equal(
+                classifier.frame_counts(tparams, torch.from_numpy(codes), tcfg).numpy(), want)
+
+
+def test_calibrate_density_counts_in_one_encoder_launch_on_cuda(monkeypatch):
+    """For CUDA tensors ``HDCPipeline.calibrate_density`` takes its counts
+    from one encoder launch with a counts output and no frame words or
+    classes: no position tensor is gathered.  The launch is recorded
+    instead of run (no card here); the recorder zeroes the counts it is
+    handed, so the threshold is the density rule's floor."""
+    import ctypes
+
+    import repro_torch.core.im as im_mod
+    import repro_torch.kernels.hdc_encoder.ref as enc_ref
+    from repro_torch.core.pipeline import HDCPipeline
+    from repro_torch.kernels import build
+
+    calls = []
+
+    class Lib:
+        def hdc_encoder_launch(self, *args):
+            calls.append(args)
+            ctypes.memset(args[19], 0, args[4] * 256 * 4)
+            return 0
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the position gather ran")
+
+    monkeypatch.setattr(enc_ops, "use_plain", lambda *t: False)
+    monkeypatch.setattr(enc_ref, "im_lookup_positions", no_gather)
+    monkeypatch.setattr(im_mod, "im_lookup_positions", no_gather)
+    monkeypatch.setattr(build, "lib", lambda: Lib())
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(enc_ops.encoder, "launches", 0)
+    monkeypatch.setattr(enc_ops.frame_counts_fused, "launches", 0)
+    cfg = HDCConfig(dim=256, segments=8, channels=6, window=32, temporal_threshold=5)
+    pipe = HDCPipeline.init(torch.Generator().manual_seed(4), cfg, device="cpu")
+    codes = torch.from_numpy(np.random.default_rng(4).integers(0, 64, (2, 100, 6),
+                                                               dtype=np.uint8))
+    new = pipe.calibrate_density(codes[1:], target=0.25)
+    assert new.cfg.temporal_threshold == 1
+    assert (enc_ops.encoder.launches, enc_ops.frame_counts_fused.launches) == (1, 1)
+    (args,) = calls
+    assert args[3] is None and args[15:19] == (None, None, None, 0)   # no words, no AM
+    assert args[19] is not None
+    assert args[0] == codes[1:].data_ptr() and args[4:13] == (3, 32, 6, 64, 8, 32, 5, 0, 2)
+    assert args[13:15] == (3, 100 * 6)
+    assert args[1] == pipe.params.item_pos.data_ptr()
+
+
+def test_frame_counts_fused_records_its_fake_launch():
+    """On fake tensors (the dry-run) the counts wrapper records one encoder
+    launch with the counts written in its bytes, and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.runtime import op_cost
+
+    cfg = HDCConfig(dim=256, segments=8, channels=6, window=32)
+    before = enc_ops.encoder.launches, enc_ops.frame_counts_fused.launches
+    with FakeTensorMode():
+        params = IMParams(torch.empty((6, 64, 8), dtype=torch.uint8),
+                          torch.empty((6, 8), dtype=torch.uint8), 256, 8)
+        codes = torch.empty((2, 100, 6), dtype=torch.uint8)
+        with op_cost.OpCounter() as counter:
+            out = enc_ops.frame_counts_fused(params, codes, cfg)
+    assert out.shape == (2, 3, 256) and out.dtype == torch.int32
+    want = enc_ops.work(6, 32, 6, 64, 8, 32, counts=True)
+    assert want[0] == enc_ops.work(6, 32, 6, 64, 8, 32)[0] + 6 * (256 - 8) * 4
+    assert counter.kernels == {"hdc_encoder": {"launches": 1, "bytes": want[0],
+                                               "int_ops": want[1]}}
+    assert (enc_ops.encoder.launches, enc_ops.frame_counts_fused.launches) == before
 
 
 def _lbp_mirror(x: np.ndarray, bits: int, run: int = 32) -> np.ndarray:

@@ -133,7 +133,8 @@ def test_the_span_module_imports_only_contextlib_and_torch():
 @pytest.mark.parametrize("site", ["runtime/spans.py:span", "kernels/lbp/ops.py:lbp_codes",
                                   "core/pipeline.py:HDCPipeline.infer",
                                   "core/pipeline.py:_fit_iterative",
-                                  "core/classifier.py:with_density_target"])
+                                  "core/classifier.py:with_density_target",
+                                  "core/pipeline.py:HDCPipeline.calibrate_density"])
 def test_no_captured_body_reaches_a_span(site):
     modules = {}
     for f in lint.iter_py_files([PORT]):
